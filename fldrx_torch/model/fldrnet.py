@@ -1,4 +1,5 @@
-"""fLDRnet inference in PyTorch — the counterpart of fldrx/model/fldrnet.py.
+"""fLDRnet in PyTorch — the counterpart of fldrx/model/fldrnet.py:
+the inference forward, the training forward and fresh parameters.
 
 Layout: NHWC activations at every function boundary, as in fldrx, so the
 two packages compare like with like; convs run through `F.conv2d` on
@@ -13,7 +14,11 @@ between the halves.
 
 Kernels: the warps go through ops/fastwarp (gather, splat) and, under bf16,
 the refine UNet's packed convs through ops/fastconv.conv3x3. dec0/dec1 and
-every flow-path conv stay `F.conv2d`, as fldrx leaves them to XLA.
+every flow-path conv stay `F.conv2d`, as fldrx leaves them to XLA. The
+fast warps are the differentiable forms (`bwarp_diff`, `softsplat_diff`:
+kernel forward, kernel backward), so the same functions serve inference,
+under `torch.inference_mode()`, and training. The packed synthesis calls
+the forward kernels directly and is inference only.
 
 The packed synthesis (`synthesize_packed_multi`) is a TPU layout in fldrx;
 here it computes the same values in plain NHWC.
@@ -35,6 +40,7 @@ from ..ops.fastconv import conv3x3
 from ..ops.resize import resize_2d
 from ..ops.splat import softsplat, softsplat_norm, softsplat_vals
 from ..ops.warp import bwarp, ones_mask_sep, sample_coords
+from ..weights import named_leaves, unflatten_params
 
 Params = Dict[str, Any]
 
@@ -128,10 +134,13 @@ def _repack_conv_idx(kh: int, kw: int, C: int, K: int, pin: int, pout: int,
 
 @functools.lru_cache(maxsize=32)
 def _repack_conv_idx_dev(kh, kw, C, K, pin, pout, stride, pad, device: str):
-    # one host-to-device copy per (shape, device), not one per call
+    # one host-to-device copy per (shape, device), not one per call; made
+    # outside inference mode, so that training may index with them after
+    # inference cached them
     idx, mask = _repack_conv_idx(kh, kw, C, K, pin, pout, stride, pad)
-    return (torch.tensor(idx, device=device),
-            torch.tensor(mask, device=device))
+    with torch.inference_mode(False):
+        return (torch.tensor(idx, device=device),
+                torch.tensor(mask, device=device))
 
 
 def _repack_conv_w(w: torch.Tensor, pin: int, pout: int, stride: int,
@@ -144,8 +153,11 @@ def _repack_conv_w(w: torch.Tensor, pin: int, pout: int, stride: int,
     idx, mask = _repack_conv_idx_dev(kh, kw, C, K, pin, pout, stride, pad,
                                      str(w.device))
     flat = w.permute(2, 3, 1, 0).reshape(-1)        # HWIO order
-    packed = torch.where(mask, flat[idx], torch.zeros((), dtype=w.dtype,
-                                                      device=w.device))
+    # index_select, not flat[idx]: its backward is one index_add_, where
+    # advanced indexing's sorts ~10^5 duplicate indices per conv
+    taps = flat.index_select(0, idx.reshape(-1)).reshape(idx.shape)
+    packed = torch.where(mask, taps, torch.zeros((), dtype=w.dtype,
+                                                 device=w.device))
     return packed.permute(3, 2, 0, 1)
 
 
@@ -193,21 +205,26 @@ def refine_unet_s2d(p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def level_flow(p: Params, feat: torch.Tensor,
-               flow_prev: Optional[torch.Tensor]) -> torch.Tensor:
+               flow_prev: Optional[torch.Tensor],
+               fast: bool = True) -> torch.Tensor:
     """One flow step on PCA features [B, h, w, 96], split at 48.
     Returns flow [B, h, w, 4] = (flow_10 x, y, flow_01 x, y). The feature
-    splats (48 + 1 channels) go through the splat kernel."""
+    splats (48 + 1 channels) go through the splat kernel unless `fast` is
+    false (fldrx runs them as its exact XLA scatter either way)."""
+    ssplat = fastwarp.softsplat_diff if fast else softsplat
     half = feat.shape[-1] // 2
     feat0 = feat[..., :half]
     feat1 = feat[..., half:]
     if flow_prev is None:
         tmp = _seq_conv_relu(p["flow_bottom"], torch.cat([feat0, feat1], -1))
         return tmp[..., :4]
-    # the reference scales all 4 channels by the width ratio only
+    # the reference scales all 4 channels by the width ratio only, and
+    # stops the gradient through the previous level's flow
     h, w = feat.shape[1], feat.shape[2]
-    up = resize_2d(flow_prev, (h, w), "bilinear") * (w / flow_prev.shape[2])
-    warped1 = fastwarp.softsplat_fast(feat1, up[..., 0:2])
-    warped0 = fastwarp.softsplat_fast(feat0, up[..., 2:4])
+    prev = flow_prev.detach()
+    up = resize_2d(prev, (h, w), "bilinear") * (w / flow_prev.shape[2])
+    warped1 = ssplat(feat1, up[..., 0:2])
+    warped0 = ssplat(feat0, up[..., 2:4])
     a = conv2d(p["conv_flow1"], torch.cat([feat0, warped1], -1))
     b = conv2d(p["conv_flow1"], torch.cat([feat1, warped0], -1))
     tmp = _seq_conv_relu(p["conv_flow2"], torch.cat([a, b, up], -1))
@@ -219,9 +236,10 @@ def level_flow(p: Params, feat: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _warp_fns(fast: bool):
-    """(bwarp, softsplat): the exact plain ops, or the kernel forms."""
+    """(bwarp, softsplat): the exact plain ops, or the differentiable
+    kernel forms."""
     if fast:
-        return fastwarp.bwarp_fast, fastwarp.softsplat_fast
+        return fastwarp.bwarp_diff, fastwarp.softsplat_diff
     return bwarp, softsplat
 
 
@@ -246,11 +264,13 @@ def z_metrics(p: Params, x0, x1, flow_10, flow_01, fast: bool = False):
 
 
 def synthesize(p: Params, flow_l: torch.Tensor, images: torch.Tensor,
-               t: torch.Tensor, fast: bool = False, precomputed=None,
+               t: torch.Tensor, crop_hw: Optional[Tuple[int, int]] = None,
+               fast: bool = False, precomputed=None,
                compute_dtype=torch.float32):
     """Warp + blend at one level (fldrx synthesize).
 
-    flow_l [B, h, w, 4]; images [B, 2, H, W, 3]; t [B, 1].
+    flow_l [B, h, w, 4]; images [B, 2, H, W, 3]; t [B, 1]; `crop_hw` crops
+    the full-resolution flows and frames before the warps (validation).
     Returns (out [B, H, W, 3], flow_refine, occ_0, (flow_t0, flow_t1))."""
     B = flow_l.shape[0]
     tb = t.reshape(B, 1, 1, 1).to(flow_l.dtype)
@@ -279,6 +299,11 @@ def synthesize(p: Params, flow_l: torch.Tensor, images: torch.Tensor,
 
     x0 = images[:, 0]
     x1 = images[:, 1]
+    if crop_hw is not None:
+        ch, cw = crop_hw
+        flow_t0, flow_t1 = flow_t0[:, :ch, :cw], flow_t1[:, :ch, :cw]
+        flow_10, flow_01 = flow_10[:, :ch, :cw], flow_01[:, :ch, :cw]
+        x0, x1 = x0[:, :ch, :cw], x1[:, :ch, :cw]
     bw, ssplat = _warp_fns(fast)
     if precomputed is None:
         z0, z1 = z_metrics(p, x0, x1, flow_10, flow_01, fast)
@@ -293,6 +318,10 @@ def synthesize(p: Params, flow_l: torch.Tensor, images: torch.Tensor,
         fb1 = bw(flow_l[..., 2:4] * (1.0 - tb), tb * flow_l[..., 0:2], False)
         flowback_0 = up(fb0)
         flowback_1 = up(fb1)
+        if crop_hw is not None:
+            flowback_0 = flowback_0[:, :crop_hw[0], :crop_hw[1]]
+            flowback_1 = flowback_1[:, :crop_hw[0], :crop_hw[1]]
+        # flow_01/flow_10 are cropped already, so the masks are too
         flowback_0 = flowback_0 * _bwarp_ones_mask((1.0 - tb) * flow_01)
         flowback_1 = flowback_1 * _bwarp_ones_mask(tb * flow_10)
     else:
@@ -551,3 +580,97 @@ def forward_test(params: Params, cfg: FLDRConfig,
     flow = forward_flow(params, cfg, pyramid, compute_dtype)
     return forward_synthesis(params, cfg, flow, pyramid[0], t, orig_hw,
                              compute_dtype=compute_dtype)
+
+
+def forward_train(params: Params, cfg: FLDRConfig,
+                  pyramid: Sequence[torch.Tensor], t: torch.Tensor,
+                  validation: bool = False,
+                  compute_dtype=torch.float32) -> Dict[str, Any]:
+    """Training forward: flow and synthesis at every level S_trn..0 (fldrx
+    forward_train). With cfg.fast_warp_train the warps are the kernel forms
+    with kernel backward passes. Returns the out pyramid (fine → coarse),
+    the refined and unrefined flow pyramids, occ_0 at level 0, the mean
+    picture and the endflow pyramid."""
+    S = cfg.S_trn
+    fast = cfg.fast_warp_train
+    feats = extract_features(params, cfg, pyramid, S + 1, compute_dtype)
+    vp = params["vfinet"]
+    crop = None
+    if validation:
+        crop = (cfg.validation_patch_size, cfg.validation_patch_size)
+
+    outs, flow_refines, unrefined, endflows = [], [], [], []
+    flow = None
+    for level in range(S, -1, -1):
+        flow = level_flow(vp, feats[level], flow, fast=fast)
+        out, fr, occ0, endflow = synthesize(
+            vp, flow.float(), pyramid[level].float(), t, crop_hw=crop,
+            fast=fast)
+        outs.append(out)
+        flow_refines.append(fr)
+        unrefined.append(flow)
+        endflows.append(endflow)
+    return {
+        "out_pyramid": outs[::-1],
+        "flow_refine_pyramid": flow_refines[::-1],
+        "unrefined_flow_pyramid": unrefined[::-1],
+        "occ_0": occ0,
+        "mean_pics": torch.mean(pyramid[0], 1),
+        "endflow_pyramid": endflows[::-1],
+    }
+
+
+# ---------------------------------------------------------------------------
+# initialisation (xavier-normal weights, zero bias)
+# ---------------------------------------------------------------------------
+
+def _conv_init(gen: torch.Generator, kh: int, kw: int, cin: int,
+               cout: int) -> Params:
+    std = float(np.sqrt(2.0 / (cin * kh * kw + cout * kh * kw)))
+    w = torch.randn((cout, cin, kh, kw), generator=gen) * std     # OIHW
+    return {"w": w, "b": torch.zeros(cout)}
+
+
+def init_params(generator: torch.Generator, cfg: FLDRConfig,
+                device="cpu") -> Params:
+    """Fresh parameters with fldrx init_params' tree and shapes (conv
+    weights OIHW here): xavier-normal from `generator` (a CPU
+    torch.Generator; its numbers are not jax.random's), zero biases, and
+    PCA placeholders that the first-batch fit replaces."""
+    nf, dnf, u = cfg.nf, cfg.dctvfi_nf, cfg.unet_nf
+    g = generator
+    flow_bottom = [_conv_init(g, 3, 3, 2 * nf, 2 * nf),
+                   _conv_init(g, 3, 3, 2 * nf, 2 * nf),
+                   _conv_init(g, 3, 3, 2 * nf, 2 * nf),
+                   _conv_init(g, 3, 3, 2 * nf, nf),
+                   _conv_init(g, 3, 3, nf, 6)]
+    conv_flow2 = [_conv_init(g, 3, 3, 2 * nf + 4, 2 * nf),
+                  _conv_init(g, 3, 3, 2 * nf, 2 * nf),
+                  _conv_init(g, 3, 3, 2 * nf, nf),
+                  _conv_init(g, 3, 3, nf, nf),
+                  _conv_init(g, 3, 3, nf, 4)]
+    refine = {"enc1": _conv_init(g, 4, 4, cfg.unet_in, u),
+              "enc2": _conv_init(g, 4, 4, u, 2 * u),
+              "enc3": _conv_init(g, 4, 4, 2 * u, 4 * u),
+              "dec0": _conv_init(g, 3, 3, 4 * u, 4 * u),
+              "dec1": _conv_init(g, 3, 3, 6 * u, 2 * u),
+              "dec2": _conv_init(g, 3, 3, 3 * u, u),
+              "dec3": _conv_init(g, 3, 3, u, cfg.unet_out)}
+
+    def pca_placeholder():
+        return {"mean": torch.zeros(cfg.wiS ** 2),
+                "ev": torch.eye(dnf, cfg.wiS ** 2),
+                "mean_vec": torch.ones(dnf)}
+
+    params = {"pca": pca_placeholder()}
+    if not cfg.exac_one_ev:
+        params["pca_multi"] = {f"s{s}": pca_placeholder()
+                               for s in cfg.scales[:4]}
+    params["rec_ctx"] = {"conv0": _conv_init(g, 3, 3, dnf * 6, dnf * 6),
+                         "conv1": _conv_init(g, 3, 3, dnf * 6, dnf * 6)}
+    params["vfinet"] = {"T_param": torch.ones(1), "z_alpha": torch.ones(2),
+                        "flow_bottom": flow_bottom,
+                        "conv_flow1": _conv_init(g, 3, 3, 2 * nf, nf),
+                        "conv_flow2": conv_flow2, "refine": refine}
+    return unflatten_params({n: v.to(device)
+                             for n, v in named_leaves(params)})

@@ -7,6 +7,10 @@ dtype. A CUDA tensor launches the kernel in csrc/conv3x3.cu (bf16 only;
 built at first use, see ops/_build.py) or raises; a CPU tensor takes the
 plain version, `F.conv2d` in float32 on the operands rounded to the input
 dtype. `LAUNCHES` counts kernel launches.
+
+The kernel's output carries no gradient, so on the card `conv3x3` raises
+when grad mode is on and an input requires grad; training runs the refine
+UNet in float32 through `F.conv2d`, off this kernel.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .fastwarp import refuse_grad
 
 __all__ = ["conv3x3", "conv3x3_plain", "LAUNCHES"]
 
@@ -42,6 +47,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return conv3x3_plain(x, w, b)
     if devs != {"cuda"}:
         raise ValueError(f"conv3x3: tensors on {sorted(devs)}")
+    refuse_grad("conv3x3", "F.conv2d", x, w, b)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"conv3x3 kernel takes bfloat16, got {x.dtype}")
     x = x.contiguous()

@@ -74,10 +74,13 @@ def _resize_matrix_np(in_size: int, out_size: int, mode: str,
 def _resize_matrix(in_size: int, out_size: int, mode: str,
                    align_corners: bool, device: torch.device) -> torch.Tensor:
     """[out_size, in_size] float32 matrix on `device`, shared (read only):
-    one host-to-device copy per (shape, device), not one per call."""
-    return torch.as_tensor(
-        _resize_matrix_np(in_size, out_size, mode,
-                          align_corners).astype(np.float32), device=device)
+    one host-to-device copy per (shape, device), not one per call. Made
+    outside inference mode, so that training may use a matrix that
+    inference cached."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(
+            _resize_matrix_np(in_size, out_size, mode,
+                              align_corners).astype(np.float32), device=device)
 
 
 def resize_2d(x: torch.Tensor, out_hw, mode: str = "bicubic",

@@ -12,7 +12,7 @@ Layout: NHWC input, flow [B,H,W,2] (x-disp, y-disp).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,12 +20,14 @@ __all__ = ["splat_sum", "splat_sum_at", "softsplat", "softsplat_vals",
            "softsplat_norm"]
 
 
-def splat_sum_at(vals: torch.Tensor, tx: torch.Tensor,
-                 ty: torch.Tensor) -> torch.Tensor:
-    """Scatter-add of `vals` [B,H,W,C] to absolute target coords tx/ty
-    [B,H,W] into a zero [B,H,W,C] canvas, with `index_add_` — one add per
-    corner, NW, NE, SW, SE in turn."""
-    B, H, W, C = vals.shape
+def splat_sum_at(vals: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor,
+                 hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Scatter-add of `vals` [B,H',W',C] to absolute target coords tx/ty
+    [B,H',W'] into a zero [B,H,W,C] canvas, with `index_add_` — one add per
+    corner, NW, NE, SW, SE in turn. The canvas is (H, W) = `hw`, by default
+    the source's own size."""
+    B, _, _, C = vals.shape
+    H, W = hw if hw is not None else vals.shape[1:3]
     x0 = torch.floor(tx)
     y0 = torch.floor(ty)
     x0i = x0.long()

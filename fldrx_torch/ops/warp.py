@@ -13,16 +13,17 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["grid_sample_bilinear", "bwarp", "sample_coords", "ones_mask_sep"]
+__all__ = ["corner_taps", "grid_sample_bilinear", "bwarp", "sample_coords",
+           "ones_mask_sep"]
 
 
-def grid_sample_bilinear(x: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
-                         with_ones_mask: bool = False):
-    """Bilinear sample of NHWC `x` [B,H,W,C] at absolute pixel coords
-    (px, py) [B,H',W'], zeros padding (each out-of-range tap adds 0).
+def corner_taps(x: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """The four bilinear taps of NHWC `x` [B,H,W,C] around absolute pixel
+    coords (px, py) [B,H',W'], each 0 where it falls outside the frame.
 
-    Returns samples [B,H',W',C]; with `with_ones_mask` also the sampled
-    all-ones image [B,H',W',1] (for the 0.999 mask threshold)."""
+    Returns ((v00, v01, v10, v11) [B,H',W',C], their validity masks
+    [B,H',W'], fx, fy [B,H',W',1]): v01 is one pixel right of v00, v10 one
+    pixel down."""
     B, H, W, C = x.shape
     x0 = torch.floor(px)
     y0 = torch.floor(py)
@@ -43,6 +44,17 @@ def grid_sample_bilinear(x: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     v01, m01 = tap(x0i + 1, y0i)
     v10, m10 = tap(x0i, y0i + 1)
     v11, m11 = tap(x0i + 1, y0i + 1)
+    return (v00, v01, v10, v11), (m00, m01, m10, m11), fx, fy
+
+
+def grid_sample_bilinear(x: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                         with_ones_mask: bool = False):
+    """Bilinear sample of NHWC `x` [B,H,W,C] at absolute pixel coords
+    (px, py) [B,H',W'], zeros padding (each out-of-range tap adds 0).
+
+    Returns samples [B,H',W',C]; with `with_ones_mask` also the sampled
+    all-ones image [B,H',W',1] (for the 0.999 mask threshold)."""
+    (v00, v01, v10, v11), (m00, m01, m10, m11), fx, fy = corner_taps(x, px, py)
     w00 = (1 - fx) * (1 - fy)
     w01 = fx * (1 - fy)
     w10 = (1 - fx) * fy

@@ -6,18 +6,40 @@ whose conv weights are HWIO. `load_npz` reads it with numpy and rebuilds the
 tree; `params_from_numpy` turns any such tree (the checkpoint's, or a JAX
 `init_params` tree carried across as numpy) into the port's parameters:
 the same nested dict of torch tensors, with every conv weight transposed to
-the OIHW layout that `F.conv2d` consumes.
+the OIHW layout that `F.conv2d` consumes. `params_to_numpy` is its inverse,
+and `flatten_params`/`unflatten_params` map a tree to and from the flat
+slash-joined names, so the port writes checkpoints that fldrx reads.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
 
-def _unflatten(flat: Dict[str, np.ndarray]):
+def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(flat name, leaf) pairs of a nested dict/list tree, in tree order;
+    names are slash-joined keys and list indices ("vfinet/refine/enc1/w")."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def flatten_params(tree) -> Dict[str, np.ndarray]:
+    """Tree → {flat name: numpy array}."""
+    return {k: np.asarray(v) for k, v in named_leaves(tree)}
+
+
+def unflatten_params(flat: Dict[str, np.ndarray]):
+    """{flat name: array} → nested dict/list tree (inverse of
+    `flatten_params`)."""
     tree: dict = {}
     for key, v in flat.items():
         parts = key.split("/")
@@ -48,7 +70,7 @@ def load_npz(path: str) -> Tuple[Any, Dict[str, np.ndarray], Dict[str, np.ndarra
                 meta[k[len("__meta__/"):]] = z[k]
             else:
                 flat[k] = z[k]
-    return _unflatten(flat), extras, meta
+    return unflatten_params(flat), extras, meta
 
 
 def params_from_numpy(tree, device="cpu", dtype=torch.float32):
@@ -68,3 +90,19 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32):
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device, dtype) for v in tree]
     return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
+
+
+def params_to_numpy(tree):
+    """The port's tree of tensors → a numpy tree in fldrx's layout (conv
+    weights HWIO): the inverse of `params_from_numpy`."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k == "w" and torch.is_tensor(v) and v.dim() == 4:
+                out[k] = v.detach().cpu().numpy().transpose(2, 3, 1, 0).copy()
+            else:
+                out[k] = params_to_numpy(v)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy().copy()

@@ -165,7 +165,7 @@ def test_softsplat_matches_fldrx(C, with_z):
     tz = None if z is None else torch.as_tensor(z)
     _close(tsplat.softsplat(torch.as_tensor(img), torch.as_tensor(flow), tz),
            ref)
-    _close(fastwarp.softsplat_fast(torch.as_tensor(img),
+    _close(fastwarp.softsplat_diff(torch.as_tensor(img),
                                    torch.as_tensor(flow), tz), ref)
 
 

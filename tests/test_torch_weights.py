@@ -97,8 +97,9 @@ def _port_files():
 
 
 def test_port_imports_neither_jax_nor_fldrx():
-    """No module of the port, and not chip_smoke.py, imports jax or any
-    part of the JAX package fldrx (AST scan of every import)."""
+    """No module of the port, and not chip_smoke.py, imports jax, flax,
+    optax, orbax or any part of the JAX package fldrx (AST scan of every
+    import)."""
     files = _port_files()
     assert len(files) > 10
     bad = []
@@ -113,6 +114,7 @@ def test_port_imports_neither_jax_nor_fldrx():
             else:
                 continue
             for m in mods:
-                if m.split(".")[0] in ("jax", "jaxlib", "fldrx"):
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "orbax", "fldrx"):
                     bad.append(f"{os.path.relpath(path, REPO)}: {m}")
     assert not bad, bad
