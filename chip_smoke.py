@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of fldrx_torch on one NVIDIA GPU: builds the hand-written CUDA
 kernels from the sources in this checkout, holds each against its plain
-PyTorch version at the shapes its paths give it, drives the two paths the
-port has — papermodel_test5 ×8 interpolation with a bf16 refine UNet, and
-papermodel training — through their entry points, and checks what comes
-out.
+PyTorch version at the shapes its paths give it, drives the paths the port
+has — papermodel_test5 ×8 interpolation with a bf16 refine UNet,
+papermodel training, the PWC-Net teacher and the golden-clip evaluation —
+through their entry points, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -16,10 +16,12 @@ script exits non-zero:
      (C=4 at 2304×4096, C=49 at 288×512), conv3x3 (enc1, 416→64 at
      576×1024), and at the training shapes gather (8×512×512×3, mask on),
      splat (C=4 at 8×512×512, C=49 at 8×64×64), gather_grad (8×512×512×3,
-     mask on) and splat_grad (C=4 at 8×512×512, C=49 at 8×64×64); each
-     against its plain version on the same inputs, with the median time
-     of 20 launches beside the plain version's, the PyTorch library
-     call's and the bound from bytes and operations.
+     mask on) and splat_grad (C=4 at 8×512×512, C=49 at 8×64×64), and
+     the teacher's correlation (dec2 8×128×128 C=32, dec3 8×64×64 C=64);
+     each against its plain version on the same inputs, with the median
+     time of 20 launches beside the plain version's, the PyTorch library
+     call's (none for the correlation) and the bound from bytes and
+     operations.
   3. inference held: prepare_model() with the real checkpoint on cuda and
      on cpu, interpolate_multi_np at 768×1280 with three t values; the two
      outputs must agree to PSNR ≥ 60 dB.
@@ -44,8 +46,28 @@ script exits non-zero:
      so this drives the trainer's entry points (TrainState,
      make_train_step, fit_pca_from_batch, SaveManager) on in-memory
      batches, not train() over PNG clips.
-  6. a JSON line for the kernels, the card line, then the last line
+  6a. teacher held: PWC-Net on seeded random weights (one torch.Generator
+     seed, the same weights on cuda and on cpu; the trained checkpoint is
+     not in the repository), get_bidirectional_flow on one 270×480 pair
+     (not a multiple of 64: the resize path); relative L2 ≤ 1e-4, TF32 off.
+  6b. teacher at full width: the published PWC widths on the training
+     recipe's batch, 8 pairs of 512×512 crops of the bench texture; one
+     warm-up call then 5 timed calls fenced by torch.cuda.synchronize();
+     ms per bidirectional call, peak memory, and launches per call, which
+     must be correlation 10 (5 decoders × 2 directions) and gather 8 (4
+     warped decoders × 2).
+  7. golden clip on the card: (a) papermodel S_tst=3, fast_warp, float32
+     at 512×768, pan family ×8, mean within 0.05 dB of 44.828
+     (tests/test_goldenclip.py's pin); (b) the deploy mix at 2160×4096,
+     pan ×8, mean and per-t PSNR, mean within 0.15 dB of 44.139 (fldrx's
+     reading of the same protocol, PARITY.md §2), with the launch counts
+     zeroed just before its inference and read after; (c) metrics_torch on two
+     of the 4K predictions against the host's psnr and ssim_bgr: ≤ 1e-4 dB
+     and ≤ 1e-5 SSIM.
+  8. a JSON line for the kernels, the card line, then the last line
      {"ok": true, "device": {...}}.
+
+Each phase prints its seconds.
 """
 
 from __future__ import annotations
@@ -132,6 +154,7 @@ def excess(got, ref, rel: float = 1e-4) -> float:
     """max(|got − ref| − rel·(1 + |ref|)): ≤ 0 when within tolerance."""
     return ((got - ref).abs() - rel * (1 + ref.abs())).max().item()
 
+
 def check_kernels(dev, peaks):
     import torch
     import torch.nn.functional as F
@@ -194,9 +217,8 @@ def check_kernels(dev, peaks):
         got = fastwarp.splat(vals, tx, ty)
         ref = fastwarp.splat_plain(vals, tx, ty)
         torch.cuda.synchronize()
-        excess = ((got - ref).abs() - 1e-4 * (1 + ref.abs())).max().item()
         err = (got - ref).abs().max().item()
-        if not excess <= 0:
+        if not excess(got, ref) <= 0:
             raise AssertionError(f"splat C={C} disagrees with its plain "
                                  f"version: max abs {err}")
         checks.append({"shape": f"1x{H}x{W}x{C}", "max_abs_err": err})
@@ -380,6 +402,54 @@ def check_train_kernels(dev, peaks, results):
               flush=True)
 
 
+def check_correlation(dev, peaks, results):
+    """Phase 2 at the teacher's two largest cost volumes on the training
+    recipe's batch (8 pairs of 512×512): dec2 (128×128, C=32) and dec3
+    (64×64, C=64). No single PyTorch call computes the 81-channel
+    volume, so there is no library yardstick."""
+    import torch
+
+    from fldrx_torch.ops import correlation
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for (B, H, W, C) in ((8, 128, 128, 32), (8, 64, 64, 64)):
+        f1 = torch.randn(B, H, W, C, device=dev, generator=g)
+        f2 = torch.randn(B, H, W, C, device=dev, generator=g)
+        got = correlation.correlation(f1, f2)
+        ref = correlation.correlation_cost_volume(f1, f2)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not excess(got, ref, 1e-5) <= 0:
+            raise AssertionError(f"correlation {B}x{H}x{W}x{C} disagrees "
+                                 f"with its plain version: max abs {err}")
+        px = B * H * W
+        b, by = bound_ms(peaks, 4 * (2 * px * C + 81 * px),
+                         81 * px * (2 * C + 1), peaks[2])
+        rows.append(dict(
+            ms=median_ms(lambda: correlation.correlation(f1, f2)),
+            plain_ms=median_ms(
+                lambda: correlation.correlation_cost_volume(f1, f2)),
+            bound_ms=b, bound_by=by, library_ms=None, max_abs_err=err,
+            shape=f"f1, f2 {B}x{H}x{W}x{C} f32 -> 81"))
+        del f1, f2, got, ref
+    results["correlation"] = dict(
+        name="correlation", route="cuda",
+        source="fldrx_torch/csrc/correlation.cu",
+        replaces="fldrx/ops/correlation.py:62",
+        library_call="none: no single PyTorch call computes the volume",
+        tolerance="1e-5*(1+|ref|)", **rows[0])
+    results["correlation"]["max_abs_err"] = max(r["max_abs_err"]
+                                                 for r in rows)
+    results["correlation"]["checks"] = rows[1:]
+    torch.cuda.empty_cache()
+    for r in rows:
+        print(f"kernel correlation: err {r['max_abs_err']:.3g}, "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library: none, "
+              f"bound {r['bound_ms']:.4f} by {r['bound_by']}) at "
+              f"{r['shape']}", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the main path
 # ---------------------------------------------------------------------------
@@ -387,11 +457,19 @@ def check_train_kernels(dev, peaks, results):
 # the kernels each path must launch
 INFER_KERNELS = ("gather", "splat", "conv3x3")
 TRAIN_KERNELS = ("gather", "splat", "gather_grad", "splat_grad")
+TEACHER_KERNELS = ("correlation", "gather")
+
+
+def _counters():
+    from fldrx_torch.ops import correlation, fastconv, fastwarp
+    return (fastwarp.LAUNCHES, fastconv.LAUNCHES, correlation.LAUNCHES)
 
 
 def launches():
-    from fldrx_torch.ops import fastconv, fastwarp
-    return {**fastwarp.LAUNCHES, **fastconv.LAUNCHES}
+    out = {}
+    for d in _counters():
+        out.update(d)
+    return out
 
 
 def require_launched(seen, kernels, where):
@@ -402,8 +480,7 @@ def require_launched(seen, kernels, where):
 
 
 def reset_launches():
-    from fldrx_torch.ops import fastconv, fastwarp
-    for d in (fastwarp.LAUNCHES, fastconv.LAUNCHES):
+    for d in _counters():
         for k in d:
             d[k] = 0
 
@@ -639,6 +716,180 @@ def train_full(card: str, dev: str = "cuda"):
     return seen
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the PWC-Net teacher
+# ---------------------------------------------------------------------------
+
+def teacher_frames(B: int, H: int, W: int, seed: int):
+    """B pairs of the bench texture as the teacher takes them: RGB in
+    [0, 1], float32 [B, H, W, 3] each."""
+    from fldrx_torch.bench_inputs import train_batch
+
+    if H == W:
+        fr = train_batch(H, np.full((B, 1), 0.5, np.float32), seed)["frames"]
+    else:
+        from fldrx_torch.bench_inputs import texture
+        fr = texture(H, W, [(0, 0), (22, 13)])[None]
+    fr = np.clip((fr + 1.0) / 2.0, 0.0, 1.0)
+    return fr[:, 0], fr[:, 1]
+
+
+def teacher_held():
+    """6a: the teacher on the card against the CPU, same weights, one
+    270×480 pair."""
+    import torch
+
+    from fldrx_torch.model.pwcnet import get_bidirectional_flow, init_pwc_params
+
+    im0, im1 = teacher_frames(1, 270, 480, 0)
+    flows, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.time()
+        params = init_pwc_params(torch.Generator().manual_seed(0), dev)
+        flows[dev] = get_bidirectional_flow(
+            params, torch.as_tensor(im0, device=dev),
+            torch.as_tensor(im1, device=dev)).double().cpu()
+        secs[dev] = time.time() - t0
+    g, c = flows["cuda"], flows["cpu"]
+    rel = float((g - c).norm() / c.norm())
+    print(json.dumps({"phase": "teacher_held", "hw": [270, 480],
+                      "rel_l2_gpu_vs_cpu": rel,
+                      "max_abs": float((g - c).abs().max()),
+                      "max_flow": float(c.abs().max()),
+                      "gpu_s": secs["cuda"], "cpu_s": secs["cpu"]}),
+          flush=True)
+    if tuple(g.shape) != (1, 270, 480, 4) or not torch.isfinite(g).all():
+        raise AssertionError(f"teacher output {tuple(g.shape)}")
+    if not rel <= 1e-4:
+        raise AssertionError(f"teacher card vs cpu: relative L2 {rel}")
+
+
+def teacher_full(card: str):
+    """6b: the teacher at the published widths on 8 pairs of 512×512."""
+    import torch
+
+    from fldrx_torch.model.pwcnet import get_bidirectional_flow, init_pwc_params
+
+    params = init_pwc_params(torch.Generator().manual_seed(0), "cuda")
+    im0, im1 = (torch.as_tensor(x).cuda() for x in teacher_frames(8, 512,
+                                                                  512, 7))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    get_bidirectional_flow(params, im0, im1)                  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    iters = 5
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = get_bidirectional_flow(params, im0, im1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    seen = launches()
+    per_call = {k: v / iters for k, v in seen.items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = bool(torch.isfinite(out).all())
+    print(json.dumps({"phase": "teacher_full", "hw": [512, 512], "pairs": 8,
+                      "calls": iters, "ms_per_call": dt / iters * 1e3,
+                      "warmup_s": warm_s, "peak_mem_gib": peak_gb,
+                      "launches_per_call": per_call,
+                      "flow_abs_max": float(out.abs().max()),
+                      "card": card}), flush=True)
+    if tuple(out.shape) != (8, 512, 512, 4) or not finite:
+        raise AssertionError(f"teacher output {tuple(out.shape)}, finite "
+                             f"{finite}")
+    require_launched(seen, TEACHER_KERNELS, "teacher at full width")
+    if per_call != {"correlation": 10, "gather": 8}:
+        raise AssertionError(f"teacher launches per call {per_call}, "
+                             "expected correlation 10 and gather 8")
+    return seen
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the golden clip on the card
+# ---------------------------------------------------------------------------
+
+GOLDEN_PIN_512 = 44.828      # tests/test_goldenclip.py, fldrx f32 on the CPU
+GOLDEN_4K = 44.139           # fldrx, the same protocol at 4K (PARITY.md §2)
+
+
+def golden_clip(card: str):
+    import torch
+
+    from fldrx_torch.api import prepare_model
+    from fldrx_torch.bench_inputs import deploy_config
+    from fldrx_torch.config import papermodel
+    from fldrx_torch.eval.goldenclip import golden_pair, golden_psnrs
+    from fldrx_torch.ops import metrics
+    from fldrx_torch.ops.metrics_torch import make_chunk_metrics
+
+    # (a) the CPU test's configuration, on the card
+    cfg = papermodel().replace(S_tst=3, fast_warp=True,
+                               compute_dtype="float32")
+    interp = prepare_model(cfg=cfg, device="cuda")[0]
+    t0 = time.time()
+    ps_a, mean_a = golden_psnrs(interp, 512, 768, 8)
+    s_a = time.time() - t0
+    del interp
+
+    # (b) the deploy mix at 4K
+    H, W = 2160, 4096
+    t0 = time.time()
+    frames, ts, gts = golden_pair(H, W, 8)
+    render_s = time.time() - t0
+    interp = prepare_model(cfg=deploy_config(), device="cuda")[0]
+    reset_launches()
+    t0 = time.time()
+    preds = interp.interpolate_multi_np(frames, list(ts))[:, 0]
+    infer_s = time.time() - t0
+    seen = launches()
+    ps_b = [metrics.psnr(metrics.denorm255(gt),
+                         np.around(metrics.denorm255(p)))
+            for p, gt in zip(preds, gts)]
+    mean_b = float(np.mean(ps_b))
+
+    # (c) metrics on the card against the host, two 4K predictions
+    t0 = time.time()
+    pick = [0, 3]
+    dev_p, dev_s = make_chunk_metrics()(
+        torch.as_tensor(preds[pick]).cuda(), torch.as_tensor(gts[pick]).cuda())
+    host = []
+    for i in pick:
+        out_img = np.around(metrics.denorm255(preds[i]))
+        tgt_img = metrics.denorm255(gts[i])
+        host.append((metrics.psnr(tgt_img, out_img),
+                     metrics.ssim_bgr(tgt_img, out_img)))
+    d_psnr = max(abs(a - h[0]) for a, h in zip(dev_p.tolist(), host))
+    d_ssim = max(abs(a - h[1]) for a, h in zip(dev_s.tolist(), host))
+    print(json.dumps({
+        "phase": "golden_clip", "a_hw": [512, 768],
+        "a_mean_db": mean_a, "a_psnrs": list(map(float, ps_a)), "a_s": s_a,
+        "b_hw": [H, W], "b_mean_db": mean_b, "b_psnrs": ps_b,
+        "b_render_s": render_s, "b_infer_s": infer_s, "b_launches": seen,
+        "c_psnr_dev_host": [[a, h[0]] for a, h in zip(dev_p.tolist(), host)],
+        "c_ssim_dev_host": [[a, h[1]] for a, h in zip(dev_s.tolist(), host)],
+        "c_max_psnr_diff_db": d_psnr, "c_max_ssim_diff": d_ssim,
+        "c_s": time.time() - t0, "card": card}), flush=True)
+    require_launched(seen, INFER_KERNELS, "golden clip 4K")
+    if not abs(mean_a - GOLDEN_PIN_512) < 0.05:
+        raise AssertionError(f"golden clip 512x768: {mean_a} dB, pinned "
+                             f"{GOLDEN_PIN_512} ± 0.05")
+    if not abs(mean_b - GOLDEN_4K) < 0.15:
+        raise AssertionError(f"golden clip 4K deploy mix: {mean_b} dB, "
+                             f"fldrx {GOLDEN_4K} ± 0.15")
+    if not (d_psnr <= 1e-4 and d_ssim <= 1e-5):
+        raise AssertionError(f"metrics on the card vs host: {d_psnr} dB, "
+                             f"{d_ssim} SSIM")
+
+
+def phase(name: str, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.time()
+    out = fn(*args)
+    print(f"phase {name}: {time.time() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -656,18 +907,28 @@ def main() -> int:
     print(f"card: {card} ({variant} peaks); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
-    results = check_kernels("cuda", peaks)
-    check_train_kernels("cuda", peaks, results)
-    main_path_held()
-    seen = main_path_4k(card)
-    train_step_held()
-    seen_train = train_full(card)
+    results = phase("2 kernels", check_kernels, "cuda", peaks)
+    phase("2 training-shape kernels", check_train_kernels, "cuda", peaks,
+          results)
+    phase("2 correlation", check_correlation, "cuda", peaks, results)
+    phase("3 inference held", main_path_held)
+    seen = phase("4 inference 4K", main_path_4k, card)
+    phase("5a train step held", train_step_held)
+    seen_train = phase("5b training full size", train_full, card)
+    phase("6a teacher held", teacher_held)
+    seen_teacher = phase("6b teacher full width", teacher_full, card)
+    phase("7 golden clip", golden_clip, card)
     for k, r in results.items():
         # launches: the count of the path the row is timed for (the 4K
         # pairs for the forward kernels, the timed train steps for the VJP
-        # kernels); launches_train: over the 5 timed train steps
-        r["launches"] = seen[k] if k in INFER_KERNELS else seen_train[k]
+        # kernels, the timed teacher calls for the correlation);
+        # launches_train: over the 5 timed train steps; launches_teacher:
+        # over the 5 timed teacher calls
+        r["launches"] = (seen[k] if k in INFER_KERNELS
+                         else seen_teacher[k] if k == "correlation"
+                         else seen_train[k])
         r["launches_train"] = seen_train[k]
+        r["launches_teacher"] = seen_teacher[k]
     print(json.dumps({"kernels": list(results.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

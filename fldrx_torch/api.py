@@ -15,21 +15,13 @@ import numpy as np
 import torch
 
 from .config import FLDRConfig, papermodel_test5
+from .device import resolve_device
 from .eval.pipeline import Interpolator
 from .ops import metrics
 from .weights import load_npz, params_from_numpy
 
 DEFAULT_NPZ = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "checkpoints", "fldrnet_best.npz")
-
-
-def resolve_device(device=None) -> torch.device:
-    """None means cuda; a CUDA device without a GPU raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available; pass device='cpu' to "
-                           "run on the CPU")
-    return dev
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:

@@ -1,16 +1,21 @@
-"""The X-Train training clips and the frame decoding they need
-(counterpart of fldrx/data/datasets.py `imread_bgr`, `frames_to_tensor` and
-`XTrain`; the test sets and the native decoder are not ported yet).
+"""Dataset indexers and frame decoding (counterpart of
+fldrx/data/datasets.py): the X-Train training clips and the test sets
+(X-Test, Xiph, Inter4K, Vimeo) with their ×N item layout.
 
 Decoding uses PIL, imported at first use; PIL loads RGB and the frames are
-flipped to BGR, the reference's cv2 order.
+flipped to BGR, the reference's cv2 order. fldrx's native PNG decoder is a
+library of the JAX package and is not loaded here.
 """
 
 from __future__ import annotations
 
+import collections
 import glob
 import os
 import random
+import threading
+from dataclasses import dataclass
+from typing import List, Tuple
 
 import numpy as np
 
@@ -33,6 +38,226 @@ def frames_to_tensor(frames: np.ndarray) -> np.ndarray:
     x *= 2.0
     return x
 
+
+def half_res_bilinear(frames: np.ndarray) -> np.ndarray:
+    """×1/2 bilinear downscale with F.interpolate semantics, on the host:
+    the --xiph2k/--xtest2k eval modes (utils.py:198-199, 475-476).
+    frames: [T,H,W,C] float."""
+    from ..ops.resize import _resize_matrix_np
+
+    T, H, W, C = frames.shape
+    Wh = _resize_matrix_np(H, H // 2, "bilinear", False).astype(np.float32)
+    Ww = _resize_matrix_np(W, W // 2, "bilinear", False).astype(np.float32)
+    out = np.einsum("oh,thwc->towc", Wh, frames)
+    return np.einsum("pw,towc->topc", Ww, out)
+
+
+# ---------------------------------------------------------------------------
+# test datasets: item i = (frames [3,H,W,C] — I0, I1, It —, t, scene)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TestItem:
+    paths: Tuple[str, str, str]      # I0, I1, It
+    t: float
+    scene: str
+
+
+class TestDataset:
+    """Items plus a small LRU of decoded frames: the ×N protocol's items
+    share a frame pair across multiple−1 consecutive targets, so without it
+    I0 and I1 would be decoded multiple−1 times each. The cache belongs to
+    the dataset and is safe for the loader's threads."""
+
+    items: List[TestItem]
+    CACHE_FRAMES = 12      # one ×8 pair's 9 frames plus the next pair's first
+
+    def __len__(self):
+        return len(self.items)
+
+    def _frames(self, paths) -> np.ndarray:
+        if not hasattr(self, "_cache"):
+            self._cache = collections.OrderedDict()
+            self._lock = threading.Lock()
+        out = []
+        for p in paths:
+            st = os.stat(p)
+            key = (p, st.st_mtime_ns, st.st_size)  # a rewritten file re-decodes
+            with self._lock:
+                f = self._cache.get(key)
+                if f is not None:
+                    self._cache.move_to_end(key)
+            if f is None:
+                f = np.ascontiguousarray(imread_bgr(p))
+                with self._lock:
+                    self._cache[key] = f
+                    while len(self._cache) > self.CACHE_FRAMES:
+                        self._cache.popitem(last=False)
+            out.append(f)
+        return np.stack(out, 0)
+
+    def load(self, idx: int, patch: int = -1, raw: bool = False):
+        """(frames [3,H,W,C], t, scene): float32 in [-1,1], or uint8 with
+        raw=True (the device normalises them); `patch` != -1 takes a centre
+        crop."""
+        it = self.items[idx]
+        frames = self._frames(it.paths)
+        if patch != -1:
+            ih, iw = frames.shape[1:3]
+            ix, iy = (iw - patch) // 2, (ih - patch) // 2
+            frames = frames[:, iy:iy + patch, ix:ix + patch]
+        return (frames if raw else frames_to_tensor(frames)), it.t, it.scene
+
+
+def make_x_test_items(root: str, multiple: int,
+                      t_step_size: int = 32) -> List[TestItem]:
+    """XVFI X-Test layout type/scene/*.png (make_2D_dataset_X_Test,
+    utils.py:414-432)."""
+    items = []
+    t = np.linspace(1 / multiple, 1 - 1 / multiple, multiple - 1)
+    for type_folder in sorted(glob.glob(os.path.join(root, "*", ""))):
+        for scene_folder in sorted(glob.glob(os.path.join(type_folder, "*",
+                                                          ""))):
+            frame_folder = sorted(glob.glob(scene_folder + "*.png"))
+            for idx in range(0, len(frame_folder), t_step_size):
+                if idx == len(frame_folder) - 1:
+                    break
+                for mul in range(multiple - 1):
+                    items.append(TestItem(
+                        paths=(frame_folder[idx],
+                               frame_folder[idx + t_step_size],
+                               frame_folder[idx + (t_step_size // multiple)
+                                            * (mul + 1)]),
+                        t=float(t[mul]),
+                        scene=scene_folder.split(os.path.join(root, ""))[-1],
+                    ))
+    return items
+
+
+class XTest(TestDataset):
+    def __init__(self, cfg: FLDRConfig, multiple: int, validation: bool,
+                 half_res: bool = False):
+        root = cfg.x_val_data_path if validation else cfg.x_test_data_path
+        self.items = make_x_test_items(root, multiple)
+        self.validation = validation
+        self.half_res = half_res          # --xtest2k (utils.py:475-476)
+        if not self.items:
+            raise FileNotFoundError(f"Found 0 files in subfolders of: {root}")
+
+    def load(self, idx, patch=-1, raw=False):
+        # half_res needs float math: raw mode degrades to float32 there
+        frames, t, scene = super().load(idx, patch,
+                                        raw=raw and not self.half_res)
+        if self.half_res:
+            frames = half_res_bilinear(frames)
+        return frames, t, scene
+
+
+XIPH_CLIPS = ["BoxingPractice", "Crosswalk", "DrivingPOV", "FoodMarket",
+              "FoodMarket2", "RitualDance", "SquareAndTimelapse", "Tango"]
+
+
+class XiphTest(TestDataset):
+    """8 Netflix clips × frames 2..98 step 2 → 392 triplets, t=0.5
+    (utils.py:157-203)."""
+
+    def __init__(self, cfg: FLDRConfig, crop_2k: bool = False,
+                 half_res: bool = False):
+        self.items = []
+        self.crop_2k = crop_2k
+        self.half_res = half_res          # --xiph2k (utils.py:198-199)
+        for clip in XIPH_CLIPS:
+            for f in range(2, 99, 2):
+                def p(i):
+                    return os.path.join(cfg.xiph_data_path,
+                                        f"{clip}-{str(i).zfill(3)}.png")
+                self.items.append(TestItem(
+                    paths=(p(f - 1), p(f + 1), p(f)), t=0.5,
+                    scene=f"{clip}/{f}"))
+
+    def load(self, idx, patch=-1, raw=False):
+        frames, t, scene = super().load(idx, patch,
+                                        raw=raw and not self.half_res)
+        if self.crop_2k:   # Xiph2KC centre crop (utils.py:195-197)
+            frames = frames[:, 540:-540, 1024:-1024]
+        if self.half_res:
+            frames = half_res_bilinear(frames)
+        return frames, t, scene
+
+
+class Inter4KTest(TestDataset):
+    """Inter4K ×8 interpolation over 8- ('S') or 16-frame ('L') spans
+    (inter4kreader.py:10-43): scene folders of consecutive frames."""
+
+    MULTIPLE = 8
+
+    def __init__(self, cfg: FLDRConfig, scenerange: int):
+        root = cfg.inter4k_data_path
+        self.items = []
+        scenes = {}
+        for folder in sorted(glob.glob(os.path.join(root, "*", ""))):
+            frames = sorted(glob.glob(os.path.join(folder, "*.png")))
+            if frames:
+                scenes[folder] = frames
+        step = scenerange // self.MULTIPLE     # 1 (S) or 2 (L)
+        t_vals = np.linspace(1 / self.MULTIPLE, 1 - 1 / self.MULTIPLE,
+                             self.MULTIPLE - 1)
+        for folder, frames in scenes.items():
+            for start in range(0, len(frames) - scenerange, scenerange):
+                i0, i1 = frames[start], frames[start + scenerange]
+                for mul in range(self.MULTIPLE - 1):
+                    it = frames[start + step * (mul + 1)]
+                    self.items.append(TestItem(
+                        paths=(i0, i1, it), t=float(t_vals[mul]),
+                        scene=os.path.basename(os.path.dirname(folder))))
+
+
+class VimeoTest(TestDataset):
+    """vimeo_triplet tri_testlist (utils.py:522-557); t=0.5, inputs im1 and
+    im3, target im2."""
+
+    def __init__(self, cfg: FLDRConfig, validation: bool = False):
+        self.items = []
+        with open(os.path.join(cfg.vimeo_data_path, "tri_testlist.txt")) as f:
+            scene_paths = [ln.strip() for ln in f if ln.strip()]
+        if validation:
+            scene_paths = scene_paths[::37]
+        for sp in scene_paths:
+            fr = sorted(glob.glob(os.path.join(
+                cfg.vimeo_data_path, "sequences", sp, "*.png")))
+            if len(fr) >= 3:
+                self.items.append(TestItem(paths=(fr[0], fr[2], fr[1]),
+                                           t=0.5, scene=sp))
+
+
+def get_test_dataset(cfg: FLDRConfig, name: str, multiple: int,
+                     validation: bool = False,
+                     half_res: bool = False) -> TestDataset:
+    """Dataset-name dispatch (get_test_data, utils.py:132-151); `half_res`
+    is the --xtest2k/--xiph2k mode."""
+    if name in ("X4K1000FPS", "X-Test"):
+        return XTest(cfg, multiple, validation, half_res=half_res)
+    if name == "Vimeo":
+        return VimeoTest(cfg, validation)
+    if name == "Xiph-4K":
+        return XiphTest(cfg, half_res=half_res)
+    if name == "Xiph2KC":
+        return XiphTest(cfg, crop_2k=True)
+    if name == "Inter4K-S":
+        return Inter4KTest(cfg, scenerange=8)
+    if name == "Inter4K-L":
+        return Inter4KTest(cfg, scenerange=16)
+    raise ValueError(f"unknown test dataset {name}")
+
+
+TEST_MULTIPLES = {"X4K1000FPS": 8, "XTest2KC": 8, "Inter4K-S": 8,
+                  "Inter4K-L": 8, "Xiph-4K": 2, "Xiph2KC": 2, "Vimeo": 2,
+                  "Adobe240": 8, "HD": 4}
+
+
+# ---------------------------------------------------------------------------
+# training dataset (X_Train, utils.py:369-409)
+# ---------------------------------------------------------------------------
 
 class XTrain:
     """65-frame clips under x_train_data_path/<scene>/<clip>/*.png; random

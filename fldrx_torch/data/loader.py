@@ -1,6 +1,6 @@
-"""Host-side training batches with background prefetch (counterpart of
-fldrx/data/loader.py `PrefetchLoader` and `train_batches`): a thread pool
-decodes PNGs (PIL releases the GIL while decoding) while the card computes.
+"""Host-side training batches and test items with background prefetch
+(counterpart of fldrx/data/loader.py): a thread pool decodes PNGs (PIL
+releases the GIL while decoding) while the card computes.
 """
 
 from __future__ import annotations
@@ -87,3 +87,12 @@ def train_batches(dataset, batch_size: int, seed: int, epoch: int,
             buf_frames, buf_t = [], []
     if buf_frames and not drop_last:
         yield _batch(buf_frames, buf_t)
+
+
+def test_samples(dataset, patch: int = -1, num_threads: int = 8,
+                 raw: bool = False):
+    """Prefetched test items in order: yields (frames [3,H,W,C], t, scene);
+    raw=True yields uint8 frames, which the device normalises."""
+    loader = PrefetchLoader(lambda i: dataset.load(i, patch, raw=raw),
+                            len(dataset), num_threads=num_threads)
+    return iter(loader)

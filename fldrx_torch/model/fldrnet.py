@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import FLDRConfig
+from ..device import resolve_device
 from ..ops import fastwarp
 from ..ops.block_pca import block_pca_features
 from ..ops.fastconv import conv3x3
@@ -632,11 +633,12 @@ def _conv_init(gen: torch.Generator, kh: int, kw: int, cin: int,
 
 
 def init_params(generator: torch.Generator, cfg: FLDRConfig,
-                device="cpu") -> Params:
+                device=None) -> Params:
     """Fresh parameters with fldrx init_params' tree and shapes (conv
-    weights OIHW here): xavier-normal from `generator` (a CPU
-    torch.Generator; its numbers are not jax.random's), zero biases, and
-    PCA placeholders that the first-batch fit replaces."""
+    weights OIHW here) on `device` (default cuda): xavier-normal from
+    `generator` (a CPU torch.Generator; its numbers are not jax.random's),
+    zero biases, and PCA placeholders that the first-batch fit replaces."""
+    device = resolve_device(device)
     nf, dnf, u = cfg.nf, cfg.dctvfi_nf, cfg.unet_nf
     g = generator
     flow_bottom = [_conv_init(g, 3, 3, 2 * nf, 2 * nf),

@@ -1,4 +1,4 @@
-"""Bicubic / bilinear resize with PyTorch `F.interpolate` semantics
+"""Bicubic / bilinear / nearest resize with PyTorch `F.interpolate` semantics
 (align_corners=False by default), as two dense matrix contractions
 out = W_h @ img @ W_w^T with interpolation matrices built once in float64
 on the host — the same formulation as fldrx/ops/resize.py, so the two
@@ -64,6 +64,10 @@ def _resize_matrix_np(in_size: int, out_size: int, mode: str,
         for k in range(-1, 3):
             idx = np.clip(i_base + k, 0, in_size - 1)
             np.add.at(W, (rows, idx), _cubic_weight(k - frac))
+    elif mode == "nearest":
+        # PyTorch 'nearest': src = floor(dst * in/out)
+        idx = np.floor(dst * (in_size / out_size)).astype(np.int64)
+        W[rows, np.clip(idx, 0, in_size - 1)] = 1.0
     else:
         raise ValueError(f"unknown resize mode: {mode}")
     W.flags.writeable = False

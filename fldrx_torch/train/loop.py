@@ -1,12 +1,13 @@
 """The training loop (counterpart of fldrx/train/loop.py): the PCA fit on
-the first training batch, epochs of train steps, a checkpoint and log lines
-per epoch, resume with optimiser state and step, and the T-optimisation
-stage with a fresh optimiser.
+the first training batch, epochs of train steps, per-epoch validation on
+the X-Test validation crops at multiple=4 (skipped for the rest of the run
+when the validation data is missing), a checkpoint and log lines per epoch,
+the training pyramid image dump of `cfg.save_images`, resume with
+optimiser state and step, and the T-optimisation stage with a fresh
+optimiser.
 
-Not ported yet, and refused rather than skipped: per-epoch validation
-(it needs the evaluator; pass `no_validation=True`), `cfg.save_images`
-(it needs the visualiser), the Orbax checkpoints, datasets other than
-X-Train, and multi-device training.
+Not ported, and refused rather than skipped: the Orbax checkpoints,
+datasets other than X-Train, and multi-device training.
 """
 
 from __future__ import annotations
@@ -19,11 +20,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..api import resolve_device
 from ..config import FLDRConfig
 from ..data.datasets import XTrain
 from ..data.loader import train_batches
-from ..model.fldrnet import init_params
+from ..device import resolve_device
+from ..eval.evaluator import Meter, evaluate
+from ..eval.pipeline import Interpolator, build_pyramid
+from ..eval.visualize import pyramid_grid, save_image
+from ..model.fldrnet import forward_train, init_params
 from ..ops.block_pca import fit_block_pca
 from ..ops.resize import resize_2d
 from ..utils.tbevents import EventWriter
@@ -32,28 +36,13 @@ from .checkpoint import SaveManager
 from .trainer import TrainState, make_train_step
 
 
-class Meter:
-    """Running average."""
-
-    def __init__(self):
-        self.sum = 0.0
-        self.count = 0
-
-    def update(self, v: float):
-        self.sum += v
-        self.count += 1
-
-    @property
-    def avg(self) -> float:
-        return self.sum / self.count if self.count else 0.0
-
-
-def fit_pca_from_batch(frames: np.ndarray, cfg: FLDRConfig, device="cpu"):
+def fit_pca_from_batch(frames: np.ndarray, cfg: FLDRConfig, device=None):
     """The block-PCA fit on the first training batch's frames [B,2,H,W,C]
     (every channel of every frame one image). Returns {"pca": ...}, and
     with exac_one_ev false also per-scale fits {"pca_multi": {"s8", ...}}
     on bicubic-downscaled images (a scale too small for one block reuses
-    the scale-8 fit). float32 tensors on `device`."""
+    the scale-8 fit). float32 tensors on `device` (default cuda)."""
+    device = resolve_device(device)
     frames = np.asarray(frames, np.float32)
     imgs = np.transpose(frames, (0, 1, 4, 2, 3)).reshape(
         -1, *frames.shape[2:4])
@@ -92,14 +81,7 @@ def assign_params(params, subtree) -> None:
         raise KeyError(f"no such parameters: {sorted(new)}")
 
 
-def _refuse_unported(cfg: FLDRConfig, no_validation: bool) -> None:
-    if not no_validation:
-        raise NotImplementedError(
-            "validation needs the evaluator, which is not ported yet; pass "
-            "no_validation=True")
-    if cfg.save_images:
-        raise NotImplementedError("save_images needs the visualiser, which "
-                                  "is not ported yet")
+def _refuse_unported(cfg: FLDRConfig) -> None:
     if cfg.use_orbax:
         raise NotImplementedError("Orbax checkpoints are not ported")
     if cfg.dataset != "X4K1000FPS":
@@ -111,9 +93,10 @@ def train(cfg: FLDRConfig, max_steps_per_epoch: Optional[int] = None,
           continue_training: bool = False, seed: int = 0,
           no_validation: bool = False, verbose: bool = True, device=None):
     """Full training run on `device` (default cuda). Returns (params,
-    best_psnr). Without validation each epoch records test PSNR 1.0, so
-    the first epoch's checkpoint is the best one."""
-    _refuse_unported(cfg, no_validation)
+    best_psnr). Without validation (no_validation, or no validation data)
+    each epoch records test PSNR 1.0, so the first epoch's checkpoint is
+    the best one."""
+    _refuse_unported(cfg)
     dev = resolve_device(device)
     SM = SaveManager(cfg)
     SM.write_config()
@@ -171,15 +154,30 @@ def train(cfg: FLDRConfig, max_steps_per_epoch: Optional[int] = None,
             losses.update(float(m["loss"]))
             warp_loss.update(float(m["warp"]))
             batch_psnr.update(float(m["psnr"]))
-            if verbose and i % cfg.freq_display == 0:
-                print(f"Epoch [{epoch}][{i}/{steps_per_epoch}] "
-                      f"loss {losses.avg:.4e} warp {warp_loss.avg:.4e} "
-                      f"PSNR {batch_psnr.avg:.2f}")
+            if i % cfg.freq_display == 0:
+                if verbose:
+                    print(f"Epoch [{epoch}][{i}/{steps_per_epoch}] "
+                          f"loss {losses.avg:.4e} warp {warp_loss.avg:.4e} "
+                          f"PSNR {batch_psnr.avg:.2f}")
+                if cfg.save_images:
+                    _dump_pyramid(cfg, state.params, batch, epoch, i, dev)
         if verbose:
             print(f"Time needed for epoch (min): "
                   f"{(time.time() - t_epoch) / 60:.2f}")
 
+        # validation (main.py:743-748): X-Test validation crops, multiple=4
         test_psnr, test_loss = 1.0, 1.0
+        if not no_validation:
+            val_cfg = cfg.replace(phase="train")    # div_pad uses S_trn
+            interp = Interpolator(state.params, val_cfg, dev)
+            try:
+                res = evaluate(interp, val_cfg, "X4K1000FPS", multiple=4,
+                               validation=True, verbose=False)
+                test_psnr, test_loss = res.psnr, res.rec_loss
+            except FileNotFoundError:
+                if verbose:
+                    print("validation data unavailable — skipping validation")
+                no_validation = True
         best = test_psnr > best_psnr
         best_psnr = max(best_psnr, test_psnr)
         SM.save(state.params, {
@@ -206,6 +204,25 @@ def train(cfg: FLDRConfig, max_steps_per_epoch: Optional[int] = None,
 
     tb.close()
     return state.params, best_psnr
+
+
+def _dump_pyramid(cfg: FLDRConfig, params, batch, epoch: int, it: int,
+                  dev: torch.device) -> None:
+    """The training pyramid image (main.py:683-690 → get_pyramid_images,
+    utils.py:945-995): the prediction and flow pyramids, the target and the
+    mean image of the batch's first item, under log_dir/exp_<N>/pyramid."""
+    frames = torch.as_tensor(batch["frames"][:1], device=dev)
+    t = torch.as_tensor(batch["t"][:1], device=dev)
+    with torch.inference_mode():
+        out = forward_train(params, cfg, build_pyramid(frames, cfg,
+                                                       cfg.S_trn + 1), t)
+    grid = pyramid_grid(
+        [o.float().cpu().numpy() for o in out["out_pyramid"]],
+        [f.float().cpu().numpy() for f in out["unrefined_flow_pyramid"]],
+        target=np.asarray(batch["target"][:1]),
+        mean_img=out["mean_pics"][:1].cpu().numpy(), n_rows=1)
+    d = os.path.join(cfg.log_dir, f"exp_{cfg.exp_num}", "pyramid")
+    save_image(os.path.join(d, f"{epoch:03d}_{it:04d}_training.png"), grid)
 
 
 def train_it(cfg: FLDRConfig, toptim: bool = True, **kw):

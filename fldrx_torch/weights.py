@@ -92,6 +92,66 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32):
     return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
 
 
+_PWC_DECONVS = ("upflow", "upfeat")
+
+
+def pwc_params_from_numpy(tree, device="cpu"):
+    """fldrx's PWC-Net tree as numpy (conv weights HWIO, deconv weights
+    fldrx's flipped HWIO, see fldrx/model/pwcnet.py
+    deconv_weight_from_torch) → the port's teacher tree: conv weights OIHW,
+    deconv weights torch's ConvTranspose2d [in, out, kh, kw] (the flip and
+    transpose undone)."""
+    out = params_from_numpy(tree, device)
+    for name, dec in out.items():
+        for k in _PWC_DECONVS:
+            if name.startswith("dec") and k in dec:
+                w = np.asarray(tree[name][k]["w"])
+                dec[k]["w"] = torch.tensor(
+                    np.flip(w.transpose(2, 3, 0, 1), (2, 3)).copy(),
+                    dtype=torch.float32, device=device)
+    return out
+
+
+def load_pwc_npz(path: str, device="cpu"):
+    """The teacher's weights from the npz that fldrx's converter writes
+    (`python -m fldrx.tools.convert_ckpt --pwc`), read by its flat names."""
+    return pwc_params_from_numpy(load_npz(path)[0], device)
+
+
+def convert_pwc_state_dict(sd, device="cpu"):
+    """The reference PWCNet state dict (OpticalFlow/PWCNet.py; values torch
+    tensors or numpy arrays) → the port's teacher tree, with the key map of
+    fldrx's convert_pwc_checkpoint. Conv and deconv weights keep torch's own
+    layouts, which are the port's."""
+    def t(name):
+        v = sd[name]
+        v = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    def cv(name):
+        return {"w": t(f"{name}.weight"), "b": t(f"{name}.bias")}
+
+    p = {"extractor": {}}
+    names = ("One", "Two", "Thr", "Fou", "Fiv", "Six")
+    for lv, nm in enumerate(names):
+        p["extractor"][f"level{lv}"] = [
+            cv(f"moduleExtractor.module{nm}.{i}") for i in (0, 2, 4)]
+    for nm, level in (("Two", 2), ("Thr", 3), ("Fou", 4), ("Fiv", 5),
+                      ("Six", 6)):
+        base = f"module{nm}"
+        d = {}
+        if level < 6:
+            d["upflow"] = cv(f"{base}.moduleUpflow")
+            d["upfeat"] = cv(f"{base}.moduleUpfeat")
+        for sub in ("One", "Two", "Thr", "Fou", "Fiv"):
+            d[sub.lower()[:3]] = cv(f"{base}.module{sub}.0")
+        d["six"] = cv(f"{base}.moduleSix.0")
+        p[f"dec{level}"] = d
+    p["refiner"] = [cv(f"moduleRefiner.moduleMain.{i}")
+                    for i in (0, 2, 4, 6, 8, 10, 12)]
+    return p
+
+
 def params_to_numpy(tree):
     """The port's tree of tensors → a numpy tree in fldrx's layout (conv
     weights HWIO): the inverse of `params_from_numpy`."""

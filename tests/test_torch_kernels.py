@@ -11,7 +11,8 @@ same kernels at the main path's 4K shapes and the training shapes.
 Tolerances: gather and splat_grad's dvals are summed term for term as their
 plain versions (≤ 1e-5, expected 0); sums over channels and the atomicAdd
 accumulations (splat, gather_grad's dimg) change order, so those are held
-at 1e-4·(1 + |ref|).
+at 1e-4·(1 + |ref|); the correlation kernel sums its C products in channel
+order where torch.mean does not, held at 1e-5·(1 + |ref|).
 """
 
 import ctypes
@@ -20,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from fldrx_torch.ops import _build, fastconv, fastwarp
+from fldrx_torch.ops import _build, correlation, fastconv, fastwarp
 from fldrx_torch.ops import warp as twarp
 
 torch.set_num_threads(1)
@@ -42,6 +43,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
     ("conv3x3", {
         # x, w (HWIO), bias, out, B, H, W, Cin, K, stream
         "fldrx_conv3x3_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    }),
+    ("correlation", {
+        # f1, f2, out, B, H, W, C, stream
+        "fldrx_correlation_f32": [_P] * 3 + [_I] * 4 + [_P],
     }),
 ])
 def test_entry_point_prototypes(name, expected):
@@ -214,3 +219,39 @@ def test_kernels_refuse_inputs_that_require_grad(card):
         fastwarp.splat(img, sx, sy)
         fastconv.conv3x3(x, w, b)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 24, 40, 32), (1, 13, 37, 12),
+                                   (3, 8, 8, 81)])
+def test_correlation_kernel_matches_plain(card, shape):
+    """Tiles cut by the frame edge (13×37), a C that is no multiple of the
+    kernel's channel chunk (12, 81), and the teacher's widths."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    f1 = torch.randn(*shape, generator=g).to(card)
+    f2 = torch.randn(*shape, generator=g).to(card)
+    before = correlation.LAUNCHES["correlation"]
+    got = correlation.correlation(f1, f2)
+    ref = correlation.correlation_cost_volume(f1, f2)
+    torch.cuda.synchronize()
+    assert correlation.LAUNCHES["correlation"] == before + 1
+    assert got.shape == ref.shape == (*shape[:3], 81)
+    _close(got, ref, 1e-5)
+
+
+@pytest.mark.cuda
+def test_correlation_diff_card_matches_cpu(card):
+    """correlation_diff's gradients on the card (kernel forward, plain
+    VJP) against the CPU, and the forward wrapper's refusal of inputs
+    that require grad."""
+    rng = np.random.RandomState(7)
+    a = rng.randn(2, 12, 20, 16).astype(np.float32)
+    b = rng.randn(2, 12, 20, 16).astype(np.float32)
+    cot = rng.randn(2, 12, 20, 81).astype(np.float32)
+    on_card = _grads_on(card, correlation.correlation_diff, (a, b), cot)
+    on_cpu = _grads_on("cpu", correlation.correlation_diff, (a, b), cot)
+    for x, y in zip(on_card, on_cpu):
+        _close(x, y)
+    f = torch.tensor(a, device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="correlation_diff"):
+        correlation.correlation(f, f)

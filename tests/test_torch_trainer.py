@@ -34,7 +34,7 @@ torch.set_num_threads(1)
 
 
 def _port_params(cfg, seed=0):
-    return init_params(torch.Generator().manual_seed(seed), cfg)
+    return init_params(torch.Generator().manual_seed(seed), cfg, "cpu")
 
 
 def _flat_np(tree):
@@ -80,7 +80,7 @@ def test_fit_block_pca_matches_fldrx_bitwise():
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
     frames = train_batch(64, np.array([[0.5], [0.5]]), seed=1)["frames"]
     cfg = tcfg.papermodel()
-    got = tloop.fit_pca_from_batch(frames, cfg)["pca"]
+    got = tloop.fit_pca_from_batch(frames, cfg, device="cpu")["pca"]
     ref = j_fit_pca_from_batch(frames, jcfg.papermodel())["pca"]
     for k in ("mean", "ev", "mean_vec"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
@@ -262,11 +262,60 @@ def test_resume_matches_uninterrupted(tmp_path):
 def test_train_refuses_what_is_not_ported(tmp_path):
     cfg = tcfg.papermodel().replace(checkpoint_dir=str(tmp_path / "ck"),
                                     text_dir=str(tmp_path / "tx"))
-    with pytest.raises(NotImplementedError, match="evaluator"):
-        tloop.train(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="visualiser"):
-        tloop.train(cfg.replace(save_images=True), no_validation=True,
-                    device="cpu")
     with pytest.raises(NotImplementedError, match="Orbax"):
-        tloop.train(cfg.replace(use_orbax=True), no_validation=True,
+        tloop.train(cfg.replace(use_orbax=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="Vimeo"):
+        tloop.train(cfg.replace(dataset="Vimeo"), no_validation=True,
                     device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """init_params and fit_pca_from_batch run on cuda when no device is
+    given; without a GPU they raise rather than fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    cfg = tcfg.papermodel()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(torch.Generator().manual_seed(0), cfg)
+    frames = _tiny_batch()["frames"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tloop.fit_pca_from_batch(frames, cfg)
+
+
+def _toy_xval(tmp_path, hw=(64, 96)):
+    """A 33-frame X-Test-layout validation scene of the golden clip."""
+    from PIL import Image
+
+    from fldrx_torch.eval.goldenclip import render_golden
+    d = tmp_path / "xval" / "Type1" / "VAL00"
+    d.mkdir(parents=True)
+    for i in range(33):
+        u8 = np.clip((render_golden(*hw, i / 32.0) + 1) * 127.5, 0, 255)
+        Image.fromarray(u8.astype(np.uint8)).save(str(d / f"{i:04d}.png"))
+    return str(tmp_path / "xval")
+
+
+def test_train_epoch_with_validation(tmp_path):
+    """One epoch with validation on toy X-Train and X-Test-layout
+    directories: the evaluator's validation PSNR and L1 loss reach the
+    checkpoint meta and the scalar log, save_images writes the training
+    pyramid, and missing validation data skips validation."""
+    cfg = tcfg.papermodel().replace(
+        S_trn=1, S_tst=1, phase="train", batch_size=1, patch_size=64,
+        epochs=1, freq_display=1, save_images=True,
+        x_train_data_path=_toy_xtrain(tmp_path),
+        x_val_data_path=_toy_xval(tmp_path),
+        checkpoint_dir=str(tmp_path / "ck"), text_dir=str(tmp_path / "tx"),
+        log_dir=str(tmp_path / "lg"))
+    _, best = tloop.train(cfg, max_steps_per_epoch=1, verbose=False,
+                          device="cpu")
+    assert 10.0 < best < 60.0
+    _, meta, _ = SaveManager(cfg).load(take_best=True)
+    assert float(meta["testPSNR"]) == best and 0 < float(meta["testLoss"]) < 1
+    pngs = list((tmp_path / "lg" / "exp_1" / "pyramid").glob("*.png"))
+    assert [p.name for p in pngs] == ["000_0000_training.png"]
+    _, best = tloop.train(cfg.replace(
+        x_val_data_path=str(tmp_path / "none"), save_images=False,
+        checkpoint_dir=str(tmp_path / "ck2")), max_steps_per_epoch=1,
+        verbose=False, device="cpu")
+    assert best == 1.0
