@@ -4,7 +4,8 @@ kernels from the sources in this checkout, holds each against its plain
 PyTorch version at the shapes its paths give it, drives the paths the port
 has — papermodel_test5 ×8 interpolation with a bf16 refine UNet,
 papermodel training, the PWC-Net teacher and the golden-clip evaluation —
-through their entry points, and checks what comes out.
+through their entry points (the evaluator's among them), and checks what
+comes out.
 
     python3 chip_smoke.py
 
@@ -16,19 +17,21 @@ script exits non-zero:
      (C=4 at 2304×4096, C=49 at 288×512), conv3x3 (enc1, 416→64 at
      576×1024), and at the training shapes gather (8×512×512×3, mask on),
      splat (C=4 at 8×512×512, C=49 at 8×64×64), gather_grad (8×512×512×3,
-     mask on) and splat_grad (C=4 at 8×512×512, C=49 at 8×64×64), and
-     the teacher's correlation (dec2 8×128×128 C=32, dec3 8×64×64 C=64);
-     each against its plain version on the same inputs, with the median
-     time of 20 launches beside the plain version's, the PyTorch library
-     call's (none for the correlation) and the bound from bytes and
-     operations.
+     mask on) and splat_grad (C=4 at 8×512×512, C=49 at 8×64×64), the
+     teacher's correlation (dec2 8×128×128 C=32, dec3 8×64×64 C=64), and
+     the interleave of the synthesis's u-planes (1×4×576×12288 f32, the
+     padded 4K frame); each against its plain version on the same inputs,
+     with the median time of 20 launches beside the plain version's, the
+     PyTorch library call's (none for the correlation) and the bound from
+     bytes and operations.
   3. inference held: prepare_model() with the real checkpoint on cuda and
      on cpu, interpolate_multi_np at 768×1280 with three t values; the two
      outputs must agree to PSNR ≥ 60 dB.
   4. inference at full size: bench.py's synthetic 2160×4096 uint8 frames,
-     ×8 (7 t values, chunks of 4), one warm-up pair then 3 timed pairs;
-     outputs finite and in [-1.1, 1.1]; frames/s and peak memory. Kernel
-     launch counts are zeroed just before the timed pairs and read after.
+     ×8 (7 t values, chunks of 4, returned as u-planes as in bench.py), one
+     warm-up pair then 3 timed pairs; outputs finite and in [-1.1, 1.1];
+     frames/s and peak memory. Kernel launch counts are zeroed just before
+     the timed pairs and read after.
   5a. train step held: the real checkpoint on cuda and on cpu, one
      make_train_step each on the same batch (B=2, 256×256, S_trn=3, bench
      texture with a per-sample pan, t from a seeded torch.Generator);
@@ -63,7 +66,13 @@ script exits non-zero:
      reading of the same protocol, PARITY.md §2), with the launch counts
      zeroed just before its inference and read after; (c) metrics_torch on two
      of the 4K predictions against the host's psnr and ssim_bgr: ≤ 1e-4 dB
-     and ≤ 1e-5 SSIM.
+     and ≤ 1e-5 SSIM; (d) evaluate() on the same 4K clip as an 8-bit test
+     set (GoldenTestSet), the deploy mix, once with the metrics on the card
+     (plain rows through the interleave kernel; launch counts zeroed just
+     before and read after) and once on the host (u-planes unpacked on the
+     worker threads): the two agree to 1e-4 dB and 1e-5 SSIM, and the mean
+     lies within 0.15 dB of 44.139 moved by the 8-bit rounding of the
+     targets (each t's float MSE plus the targets' rounding MSE).
   8. a JSON line for the kernels, the card line, then the last line
      {"ok": true, "device": {...}}.
 
@@ -402,6 +411,41 @@ def check_train_kernels(dev, peaks, results):
               flush=True)
 
 
+def check_interleave(dev, peaks, results):
+    """Phase 2 at the shape the evaluator's device-metrics path gives the
+    interleave: the padded 4K frame's u-planes, 1×4×576×12288 f32."""
+    import torch
+
+    from fldrx_torch.ops import repack
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, H, WC = 1, 2304, 4096 * 3
+    planes = torch.randn(B, 4, H // 4, WC, device=dev, generator=g)
+    got = repack.interleave_planes(planes)
+    ref = repack.interleave_planes_plain(planes)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("interleave disagrees with its plain version")
+    b, by = bound_ms(peaks, 2 * 4 * B * H * WC, 0, peaks[2])
+    results["interleave"] = dict(
+        name="interleave", route="cuda", source="fldrx_torch/csrc/repack.cu",
+        replaces="fldrx/ops/repack.py:77", also_replaces="fldrx/ops/repack.py:102",
+        library_call="planes.transpose(1, 2).contiguous()",
+        tolerance="bit-exact", max_abs_err=(got - ref).abs().max().item(),
+        ms=median_ms(lambda: repack.interleave_planes(planes)),
+        plain_ms=median_ms(lambda: repack.interleave_planes_plain(planes)),
+        bound_ms=b, bound_by=by,
+        library_ms=median_ms(lambda: planes.transpose(1, 2).contiguous()),
+        shape=f"planes {B}x4x{H // 4}x{WC} f32")
+    del planes, got, ref
+    torch.cuda.empty_cache()
+    r = results["interleave"]
+    print(f"kernel interleave: err {r['max_abs_err']:.3g}, {r['ms']:.4f} ms "
+          f"(plain {r['plain_ms']:.3f}, library {r['library_ms']:.4f}, bound "
+          f"{r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}",
+          flush=True)
+
+
 def check_correlation(dev, peaks, results):
     """Phase 2 at the teacher's two largest cost volumes on the training
     recipe's batch (8 pairs of 512×512): dec2 (128×128, C=32) and dec3
@@ -458,11 +502,13 @@ def check_correlation(dev, peaks, results):
 INFER_KERNELS = ("gather", "splat", "conv3x3")
 TRAIN_KERNELS = ("gather", "splat", "gather_grad", "splat_grad")
 TEACHER_KERNELS = ("correlation", "gather")
+EVAL_KERNELS = INFER_KERNELS + ("interleave",)
 
 
 def _counters():
-    from fldrx_torch.ops import correlation, fastconv, fastwarp
-    return (fastwarp.LAUNCHES, fastconv.LAUNCHES, correlation.LAUNCHES)
+    from fldrx_torch.ops import correlation, fastconv, fastwarp, repack
+    return (fastwarp.LAUNCHES, fastconv.LAUNCHES, correlation.LAUNCHES,
+            repack.LAUNCHES)
 
 
 def launches():
@@ -548,7 +594,7 @@ def main_path_4k(card: str):
     out = pair(stats)                                   # warm-up
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    if tuple(out.shape) != (chunk - 1, 1, H, W, 3):
+    if tuple(out.shape) != (chunk - 1, 1, 4, H // 4, W * 3):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     iters = 3
     reset_launches()
@@ -871,6 +917,7 @@ def golden_clip(card: str):
         "c_max_psnr_diff_db": d_psnr, "c_max_ssim_diff": d_ssim,
         "c_s": time.time() - t0, "card": card}), flush=True)
     require_launched(seen, INFER_KERNELS, "golden clip 4K")
+    seen_eval = golden_evaluate(interp, frames, ts, gts, ps_b, card)
     if not abs(mean_a - GOLDEN_PIN_512) < 0.05:
         raise AssertionError(f"golden clip 512x768: {mean_a} dB, pinned "
                              f"{GOLDEN_PIN_512} ± 0.05")
@@ -880,6 +927,62 @@ def golden_clip(card: str):
     if not (d_psnr <= 1e-4 and d_ssim <= 1e-5):
         raise AssertionError(f"metrics on the card vs host: {d_psnr} dB, "
                              f"{d_ssim} SSIM")
+    return seen_eval
+
+
+def golden_evaluate(interp, frames, ts, gts, ps_float, card: str):
+    """(d): evaluate() on the 4K golden clip as an 8-bit test set, metrics
+    on the card and on the host. The 8-bit targets add their rounding
+    error to each t's error: the float reading's MSE plus the targets'
+    rounding MSE predicts the 8-bit reading, and that shift moves fldrx's
+    44.139 for the check."""
+    from fldrx_torch.data.datasets import frames_to_tensor
+    from fldrx_torch.eval.evaluator import evaluate
+    from fldrx_torch.eval.goldenclip import GoldenTestSet, to_uint8_frames
+    from fldrx_torch.ops import metrics
+
+    ds = GoldenTestSet(frames, ts, gts)
+    cfg = interp.cfg
+    reset_launches()
+    t0 = time.time()
+    on = evaluate(interp, cfg, "golden", multiple=8, dataset=ds,
+                  verbose=False)
+    on_s = time.time() - t0
+    seen = launches()
+    t0 = time.time()
+    off = evaluate(interp, cfg, "golden", multiple=8, dataset=ds,
+                   verbose=False, device_metrics=False)
+    off_s = time.time() - t0
+    shifted = []
+    for p, gt in zip(ps_float, gts):
+        mse = 255.0 ** 2 / 10 ** (p / 10)
+        q = metrics.denorm255(frames_to_tensor(to_uint8_frames(gt)[None])[0]) \
+            - metrics.denorm255(gt)
+        shifted.append(10 * np.log10(255.0 ** 2 / (mse + np.mean(q ** 2))))
+    shift = float(np.mean(shifted) - np.mean(ps_float))
+    expect = GOLDEN_4K + shift
+    print(json.dumps({
+        "phase": "golden_evaluate", "hw": list(gts.shape[1:3]),
+        "psnr_device_metrics": on.psnr, "ssim_device_metrics": on.ssim,
+        "psnr_host_metrics": off.psnr, "ssim_host_metrics": off.ssim,
+        "n_samples": [on.n_samples, off.n_samples],
+        "rounding_shift_db": shift, "expected_db": expect,
+        "device_metrics_s": on_s, "host_metrics_s": off_s,
+        "fps_device_metrics": on.frames_per_sec, "launches": seen,
+        "card": card}), flush=True)
+    require_launched(seen, EVAL_KERNELS, "evaluate, metrics on the card")
+    if not on.n_samples == off.n_samples == len(ts):
+        raise AssertionError(f"evaluate scored {on.n_samples}, "
+                             f"{off.n_samples} of {len(ts)} frames")
+    if not (abs(on.psnr - off.psnr) <= 1e-4 and abs(on.ssim - off.ssim)
+            <= 1e-5):
+        raise AssertionError(f"evaluate, metrics on the card vs the host: "
+                             f"{on.psnr} vs {off.psnr} dB, {on.ssim} vs "
+                             f"{off.ssim}")
+    if not abs(on.psnr - expect) < 0.15:
+        raise AssertionError(f"evaluate on the 8-bit golden clip: {on.psnr} "
+                             f"dB, expected {expect} ± 0.15")
+    return seen
 
 
 def phase(name: str, fn, *args):
@@ -911,24 +1014,28 @@ def main() -> int:
     phase("2 training-shape kernels", check_train_kernels, "cuda", peaks,
           results)
     phase("2 correlation", check_correlation, "cuda", peaks, results)
+    phase("2 interleave", check_interleave, "cuda", peaks, results)
     phase("3 inference held", main_path_held)
     seen = phase("4 inference 4K", main_path_4k, card)
     phase("5a train step held", train_step_held)
     seen_train = phase("5b training full size", train_full, card)
     phase("6a teacher held", teacher_held)
     seen_teacher = phase("6b teacher full width", teacher_full, card)
-    phase("7 golden clip", golden_clip, card)
+    seen_eval = phase("7 golden clip", golden_clip, card)
     for k, r in results.items():
         # launches: the count of the path the row is timed for (the 4K
         # pairs for the forward kernels, the timed train steps for the VJP
-        # kernels, the timed teacher calls for the correlation);
+        # kernels, the timed teacher calls for the correlation, the
+        # evaluator's device-metrics run for the interleave);
         # launches_train: over the 5 timed train steps; launches_teacher:
-        # over the 5 timed teacher calls
+        # over the 5 timed teacher calls; launches_eval: over that run
         r["launches"] = (seen[k] if k in INFER_KERNELS
                          else seen_teacher[k] if k == "correlation"
+                         else seen_eval[k] if k == "interleave"
                          else seen_train[k])
         r["launches_train"] = seen_train[k]
         r["launches_teacher"] = seen_teacher[k]
+        r["launches_eval"] = seen_eval[k]
     print(json.dumps({"kernels": list(results.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ imports nothing of it.
 
 Only the fields the inference path reads carry meaning here; the training
 and path fields are kept so a configuration can be carried across the two
-packages field for field. `planes_out` is kept as a field, but the port has
-no u-plane layout: its outputs are always plain [.., H, W, 3].
+packages field for field. `planes_out`, as in fldrx, makes the ×N synthesis
+of the packed path return u-planes [.., 4, H/4, W·3], which the host unpacks
+(ops/repack.py).
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ class FLDRConfig:
     # --- eval / data ---
     multiple: int = 8
     t_chunk: int = 4                  # t-values per synthesis chunk
-    planes_out: bool = True           # kept for parity; the port is plain
+    planes_out: bool = True           # ×N synthesis returns u-planes
     per_item_minmax: bool = False     # PCA min-max per batch item
     padding: str = "reflect"
     dataset: str = "X4K1000FPS"

@@ -12,7 +12,10 @@ Metrics are computed either on the card, per synthesis chunk
 the host from the fetched frames (ops/metrics.py) on a pool of worker
 threads while the card synthesises the next pair. The card path is taken
 by default, as in fldrx, when nothing else needs the frames on the host:
-no dump (`save_dir`) and no validation loss. Test frames travel to the
+no dump (`save_dir`) and no validation loss. The card path asks the
+synthesis for plain rows (the interleave kernel, ops/repack.py); the host
+path fetches u-planes where cfg.planes_out and unpacks them on the worker
+threads. Test frames travel to the
 device as uint8 and are normalised there, except in validation, whose
 L1 loss wants the float frames on the host.
 """
@@ -29,7 +32,8 @@ import numpy as np
 import torch
 
 from ..config import FLDRConfig
-from ..data.datasets import TEST_MULTIPLES, frames_to_tensor, get_test_dataset
+from ..data.datasets import (TEST_MULTIPLES, TestDataset, frames_to_tensor,
+                             get_test_dataset)
 from ..data.loader import test_samples
 from ..ops import metrics
 from ..ops.metrics_torch import make_chunk_metrics
@@ -100,7 +104,8 @@ def evaluate(interp: Interpolator, cfg: FLDRConfig, dataset_name: str,
              verbose: bool = True, half_res: bool = False,
              jump_to: int = -1, compute_metrics: bool = True,
              xvfi_psnr: bool = False, save_flow: bool = False,
-             parallel_eval=None, device_metrics: bool = True) -> EvalResult:
+             parallel_eval=None, device_metrics: bool = True,
+             dataset: Optional[TestDataset] = None) -> EvalResult:
     """Run the ×N protocol over a test set.
 
     compute_metrics=False is the reference's test_custom phase (main.py:891:
@@ -110,13 +115,14 @@ def evaluate(interp: Interpolator, cfg: FLDRConfig, dataset_name: str,
     0:2, the t→0 direction) and |gray(pred) − gray(gt)| per target under
     <save_dir>/<dataset>/Test_flow_preds/<scene>/ (main.py:929-952,
     utils.py:998-1022). device_metrics=False keeps the metrics on the host
-    even where the card path applies. parallel_eval (multi-device) is not
-    ported and raises."""
+    even where the card path applies. `dataset` replaces the test set that
+    dataset_name names on disk (dataset_name still names the outputs).
+    parallel_eval (multi-device) is not ported and raises."""
     if parallel_eval is not None:
         raise NotImplementedError("multi-device evaluation is not ported")
     multiple = multiple or TEST_MULTIPLES.get(dataset_name, cfg.multiple)
-    ds = get_test_dataset(cfg, dataset_name, multiple, validation,
-                          half_res=half_res)
+    ds = dataset if dataset is not None else get_test_dataset(
+        cfg, dataset_name, multiple, validation, half_res=half_res)
     patch = (cfg.validation_patch_size if validation and
              dataset_name in ("X4K1000FPS", "X-Test") else cfg.test_patch_size)
 
@@ -127,8 +133,8 @@ def evaluate(interp: Interpolator, cfg: FLDRConfig, dataset_name: str,
     metric_q: List = []
 
     def metrics_job(frames, t, scene, pred, flow_img=None):
-        if pred.shape[-1] != 3:       # u-plane form (not produced by the
-            pred = planes_to_plain_np(pred)   # port's synthesis yet)
+        if pred.shape[-1] != 3:       # cfg.planes_out: the unpack rides
+            pred = planes_to_plain_np(pred)   # this worker thread
         target = frames[2]
         if target.dtype == np.uint8:
             target = frames_to_tensor(target[None])[0]
@@ -165,21 +171,23 @@ def evaluate(interp: Interpolator, cfg: FLDRConfig, dataset_name: str,
                         os.path.join(fd, f"diff{t:.4f}.png"))
         return p, s, rec
 
+    def record(idx, t, p, s, rec):
+        if rec is not None:
+            rec_losses.update(rec)
+        if p is not None:
+            psnrs.update(p)
+            ssims.update(s)
+            if dataset_name.startswith("Inter4K"):
+                per_t[int(round(t * multiple)) - 1].update(p)
+        if verbose and idx % (multiple - 1) == multiple - 2:
+            print(f"[{idx + 1}/{len(ds)}] PSNR {psnrs.avg:.4f}  "
+                  f"SSIM {ssims.avg:.4f}  "
+                  f"pred {pred_time.avg * 1000:.1f} ms")
+
     def drain(limit=0):
         while len(metric_q) > limit:
             idx, t, fut = metric_q.pop(0)
-            p, s, rec = fut.result()
-            if rec is not None:
-                rec_losses.update(rec)
-            if p is not None:
-                psnrs.update(p)
-                ssims.update(s)
-                if dataset_name.startswith("Inter4K"):
-                    per_t[int(round(t * multiple)) - 1].update(p)
-            if verbose and idx % (multiple - 1) == multiple - 2:
-                print(f"[{idx + 1}/{len(ds)}] PSNR {psnrs.avg:.4f}  "
-                      f"SSIM {ssims.avg:.4f}  "
-                      f"pred {pred_time.avg * 1000:.1f} ms")
+            record(idx, t, *fut.result())
 
     def process_item(idx, frames, t, scene, pred, flow_img=None):
         metric_q.append((idx, t, pool.submit(metrics_job, frames, t, scene,
@@ -215,8 +223,11 @@ def evaluate(interp: Interpolator, cfg: FLDRConfig, dataset_name: str,
         flow, padded, extras = interp.precompute_flow(inputs)
         flow_img = (flow_image(flow, padded, H, W)
                     if save_flow and save_dir else None)
+        # scored on the device: plain rows (the interleave kernel);
+        # fetched to the host: cfg.planes_out, unpacked on the workers
         outs = [interp.synthesize_multi_at(flow, padded, ts[k:k + tchunk],
-                                           (H, W), extras)
+                                           (H, W), extras,
+                                           planes_out=False if devmet else None)
                 for k in range(0, len(ts), tchunk)]
         if devmet:
             scores = []
@@ -229,9 +240,7 @@ def evaluate(interp: Interpolator, cfg: FLDRConfig, dataset_name: str,
             dt = (time.time() - t0) / len(items)
             for (idx, _, t, _), (p, s) in zip(items, scores):
                 pred_time.update(dt)
-                metric_q.append((idx, t, pool.submit(
-                    lambda p=p, s=s: (p, s, None))))
-                drain(limit=24)
+                record(idx, t, p, s, None)
             return
         preds: List[np.ndarray] = []
         for out in outs:

@@ -14,12 +14,15 @@ that moves quality shows up as a PSNR shift.
 
 All geometry scales with (H, W) so the CPU test (512×768, S_tst=3) and the
 4K run (test5scales) render the same scene. `golden_psnrs` runs the ×N
-protocol through the port's `Interpolator.interpolate_multi_np`.
+protocol through the port's `Interpolator.interpolate_multi_np`;
+`GoldenTestSet` serves one pair to the evaluator as an 8-bit test set.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..data.datasets import TestDataset, TestItem
 
 
 def _texture(xx, yy, phases, scale=1.0):
@@ -214,6 +217,34 @@ def golden_pair(H: int, W: int, multiple: int = 8, family: str = "pan"):
     ts = np.linspace(1 / multiple, 1 - 1 / multiple, multiple - 1)
     gts = np.stack([render_golden(H, W, float(t), family) for t in ts], 0)
     return np.stack([f0, f1], 0)[None], ts, gts
+
+
+def to_uint8_frames(frames: np.ndarray) -> np.ndarray:
+    """Frames in [-1, 1] → 8-bit, the inverse of frames_to_tensor up to
+    rounding (values past ±1 clip)."""
+    return np.clip(np.around((frames + 1.0) * 127.5), 0, 255).astype(np.uint8)
+
+
+class GoldenTestSet(TestDataset):
+    """One golden pair as an 8-bit ×N test set held in memory, for
+    `evaluate(..., dataset=)`: item k is (I0, I1, the target at ts[k]),
+    like an X-Test scene. Built from golden_pair's output, so a caller that
+    has rendered the clip does not render it again."""
+
+    def __init__(self, frames: np.ndarray, ts, gts: np.ndarray,
+                 family: str = "pan"):
+        name = f"golden/{family}/"
+        self._store = {name + "I0": to_uint8_frames(frames[0, 0]),
+                       name + "I1": to_uint8_frames(frames[0, 1])}
+        self.items = []
+        for k, t in enumerate(ts):
+            self._store[name + f"t{k}"] = to_uint8_frames(gts[k])
+            self.items.append(TestItem(paths=(name + "I0", name + "I1",
+                                              name + f"t{k}"),
+                                       t=float(t), scene=f"golden_{family}"))
+
+    def _frames(self, paths) -> np.ndarray:
+        return np.stack([self._store[p] for p in paths], 0)
 
 
 def golden_psnrs(interp, H: int, W: int, multiple: int = 8,

@@ -18,6 +18,7 @@ from ..model.fldrnet import (dtype_of, flow_extras, forward_flow,
                              forward_synthesis, forward_synthesis_multi,
                              forward_test)
 from ..ops.pad import pad_frames
+from ..ops.repack import planes_to_plain_np
 from ..ops.resize import resize_2d
 
 
@@ -108,17 +109,25 @@ class Interpolator:
         return out[:, :orig_hw[0], :orig_hw[1]]
 
     def synthesize_multi_at(self, flow, padded_frames, t_values: Sequence,
-                            orig_hw: Tuple[int, int],
-                            extras=None) -> torch.Tensor:
-        """t_values: sequence of scalars → [T, B, H, W, 3] (cropped)."""
+                            orig_hw: Tuple[int, int], extras=None,
+                            planes_out=None) -> torch.Tensor:
+        """t_values: sequence of scalars → [T, B, H, W, 3] (cropped) or,
+        with planes_out on the packed path, the u-planes [T, B, 4, H/4, W·3]
+        (shape[-1] != 3; ops.repack.planes_to_plain_np unpacks them).
+        planes_out=None takes cfg.planes_out; the evaluator asks for plain
+        rows when it scores the frames on the device."""
         B = flow.shape[0]
+        if planes_out is None:
+            planes_out = self.cfg.planes_out
         ts = [torch.full((B, 1), float(tv), dtype=torch.float32,
                          device=self.device) for tv in t_values]
         with torch.inference_mode():
-            out = forward_synthesis_multi(self.params, self.cfg, flow,
-                                          padded_frames, ts,
-                                          precomputed=extras,
-                                          compute_dtype=self._compute_dtype)
+            out = forward_synthesis_multi(
+                self.params, self.cfg, flow, padded_frames, ts,
+                precomputed=extras, compute_dtype=self._compute_dtype,
+                planes_out=planes_out and orig_hw[0] % 4 == 0)
+        if out.shape[-1] != 3:                          # u-planes
+            return out[..., :orig_hw[0] // 4, :orig_hw[1] * 3]
         return out[:, :, :orig_hw[0], :orig_hw[1]]
 
     def interpolate_multi_np(self, frames, t_values) -> np.ndarray:
@@ -131,6 +140,7 @@ class Interpolator:
         for k in range(0, len(t_values), chunk):
             out = self.synthesize_multi_at(flow, padded,
                                            t_values[k:k + chunk], (H, W),
-                                           extras)
-            outs.append(out.cpu().numpy())
+                                           extras).cpu().numpy()
+            outs.append(planes_to_plain_np(out) if out.shape[-1] != 3
+                        else out)
         return np.concatenate(outs, 0)

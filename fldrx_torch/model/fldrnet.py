@@ -21,7 +21,9 @@ under `torch.inference_mode()`, and training. The packed synthesis calls
 the forward kernels directly and is inference only.
 
 The packed synthesis (`synthesize_packed_multi`) is a TPU layout in fldrx;
-here it computes the same values in plain NHWC.
+here it computes the same values in plain NHWC up to the refine UNet, whose
+space-to-depth output the final blend reads in place, writing u-planes
+(ops/repack.py). A plain frame then takes the interleave kernel.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..device import resolve_device
 from ..ops import fastwarp
 from ..ops.block_pca import block_pca_features
 from ..ops.fastconv import conv3x3
+from ..ops.repack import interleave_planes
 from ..ops.resize import resize_2d
 from ..ops.splat import softsplat, softsplat_norm, softsplat_vals
 from ..ops.warp import bwarp, ones_mask_sep, sample_coords
@@ -362,39 +365,62 @@ def can_use_packed(flow_l: torch.Tensor, images: torch.Tensor) -> bool:
 
 
 def blend6(logits: torch.Tensor, cands, tb: torch.Tensor,
-           Tparam: torch.Tensor) -> torch.Tensor:
+           Tparam: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """The fast path's candidate blend with the (1−t)/t weights folded into
     the softmax logits: t_i·exp(o_i/T) = exp(o_i/T + log t_i), so the
-    renormalising divisor cancels (fldrx blend_planes_24, in NHWC).
-    logits [B,H,W,6]; cands (warped0, warped1, im0, im1, x0, x1) [B,H,W,3];
-    tb [B,1,1,1]."""
+    renormalising divisor cancels (fldrx blend_planes_24).
+    logits [..., 6]; cands (warped0, warped1, im0, im1, x0, x1) [..., 3];
+    tb [B, 1, ..., 1] of the same rank; the result is written to `out`."""
     logt = torch.log(tb)
     log1mt = torch.log(1.0 - tb)
     bias = torch.cat([log1mt, logt, log1mt, logt, log1mt, logt], -1)
     x = logits / Tparam + bias
     e = torch.exp(x - x.amax(-1, keepdim=True))
     pr = e / e.sum(-1, keepdim=True)
-    out = pr[..., 0:1] * cands[0]
-    for i in range(1, 6):
-        out = out + pr[..., i:i + 1] * cands[i]
-    return out
+    acc = pr[..., 0:1] * cands[0]
+    for i in range(1, 5):
+        acc = acc + pr[..., i:i + 1] * cands[i]
+    return torch.add(acc, pr[..., 5:6] * cands[5], out=out)
+
+
+def blend6_planes(logits_s2d: torch.Tensor, cands, tb: torch.Tensor,
+                  Tparam: torch.Tensor) -> torch.Tensor:
+    """`blend6` straight from the refine UNet's s2d4 output into u-planes:
+    logits_s2d [B, H/4, W/4, 16·6] in cell-major order (u·4+v)·6+c, cands
+    plain [B, H, W, 3] → [B, 4, H/4, W·3]. Plane u of every operand is a
+    strided view, so the 6-channel UNet output is never depth-to-space
+    permuted; the 3-channel result is, by the interleave kernel or the
+    host, at half the bytes."""
+    B, Hp4, Wp4, _ = logits_s2d.shape
+    lg = logits_s2d.reshape(B, Hp4, Wp4, 4, 4, 6)
+    cs = [c.reshape(B, Hp4, 4, Wp4, 4, 3) for c in cands]
+    tb = tb.reshape(B, 1, 1, 1, 1)
+    out = torch.empty((B, 4, Hp4, Wp4, 4, 3), dtype=torch.float32,
+                      device=logits_s2d.device)
+    for u in range(4):
+        blend6(lg[:, :, :, u], [c[:, :, u] for c in cs], tb, Tparam,
+               out=out[:, u])
+    return out.reshape(B, 4, Hp4, Wp4 * 12)
 
 
 def synthesize_packed_multi(p: Params, flow_l: torch.Tensor,
                             images: torch.Tensor, ts, precomputed=None,
-                            compute_dtype=torch.float32) -> List[torch.Tensor]:
+                            compute_dtype=torch.float32,
+                            planes_out: bool = False) -> List[torch.Tensor]:
     """Level-0 synthesis of the fast packed path for a chunk of t values,
-    with the values of fldrx synthesize_packed_multi computed in plain NHWC:
+    with the values of fldrx synthesize_packed_multi:
 
     * scalar t commuted through the precomputed full-res flows;
     * the low-res flowback composition (gather at the flow grid),
       upsampled and masked with ones_mask_sep at full resolution;
     * im_tot gathers with the separable mask;
     * the UNet in s2d4 form fed in canonical channel order;
-    * the log-t folded six-way blend with no divisor.
+    * the log-t folded six-way blend with no divisor, into u-planes.
 
     The t-independent splat values are built once for the whole chunk.
-    ts: sequence of [B, 1] t tensors. Returns a list of [B, H, W, 3]."""
+    ts: sequence of [B, 1] t tensors. Returns a list of [B, H, W, 3], or
+    with planes_out the u-planes [B, 4, H/4, W·3] (the same values; fldrx
+    planes_out), which skips the interleave kernel."""
     B = flow_l.shape[0]
     flow_l = flow_l.float()
     images = images.float()
@@ -442,10 +468,11 @@ def synthesize_packed_multi(p: Params, flow_l: torch.Tensor,
 
         refine_in = torch.cat([x0, x1, warped0, warped1, ft0, ft1,
                                fb0, fb1, im0, im1], -1).to(compute_dtype)
-        logits = d2s(refine_unet_s2d_core(p["refine"], s2d(refine_in, 4)),
-                     4).float()
-        results.append(blend6(logits, (warped0, warped1, im0, im1, x0, x1),
-                              tb, Tparam))
+        logits = refine_unet_s2d_core(p["refine"], s2d(refine_in, 4)).float()
+        outP = blend6_planes(logits, (warped0, warped1, im0, im1, x0, x1),
+                             tb, Tparam)
+        results.append(outP if planes_out else
+                       interleave_planes(outP).reshape(B, H, W, 3))
     return results
 
 
@@ -557,14 +584,18 @@ def forward_synthesis(params: Params, cfg: FLDRConfig, flow: torch.Tensor,
 def forward_synthesis_multi(params: Params, cfg: FLDRConfig,
                             flow: torch.Tensor, images: torch.Tensor, ts,
                             precomputed=None,
-                            compute_dtype=torch.float32) -> torch.Tensor:
+                            compute_dtype=torch.float32,
+                            planes_out: bool = False) -> torch.Tensor:
     """Level-0 synthesis for a chunk of t values → [T, B, H, W, 3]. The
     packed path takes the whole chunk in one call, sharing its
-    t-independent setup."""
+    t-independent setup; there planes_out returns the u-planes
+    [T, B, 4, H/4, W·3] (elsewhere it is ignored: callers check the
+    shape)."""
     if _packed_enabled(cfg) and can_use_packed(flow, images):
         return torch.stack(synthesize_packed_multi(
             params["vfinet"], flow, images, ts, precomputed=precomputed,
-            compute_dtype=_stage_dtype(cfg, "unet_dtype", compute_dtype)), 0)
+            compute_dtype=_stage_dtype(cfg, "unet_dtype", compute_dtype),
+            planes_out=planes_out), 0)
     return torch.stack(
         [forward_synthesis(params, cfg, flow, images, t,
                            precomputed=precomputed,

@@ -277,3 +277,46 @@ def test_evaluate_options(eval_models, tmp_path):
     assert base.n_samples == 7
     with pytest.raises(NotImplementedError):
         tev.evaluate(interp, tc, "X4K1000FPS", parallel_eval=lambda *a: a)
+
+
+@pytest.fixture(scope="module")
+def golden_set_768():
+    """The pan golden pair at 768×768 as an 8-bit test set: large enough
+    for the packed synthesis (flow grid ≥ 96), so its u-planes and the
+    interleave are on the path."""
+    return tgold.GoldenTestSet(*tgold.golden_pair(768, 768, 8))
+
+
+def test_golden_test_set(golden_set_768):
+    ds = golden_set_768
+    assert len(ds) == 7 and len({it.paths[:2] for it in ds.items}) == 1
+    raw, t, scene = ds.load(3, raw=True)
+    assert raw.dtype == np.uint8 and raw.shape == (3, 768, 768, 3)
+    assert t == 0.5 and scene == "golden_pan"
+    f, _, _ = ds.load(3, patch=64)
+    np.testing.assert_array_equal(f, jds.frames_to_tensor(
+        raw[:, 352:416, 352:416]))
+
+
+def test_evaluate_golden_set_matches_fldrx(golden_set_768, monkeypatch):
+    """evaluate(dataset=) on the 8-bit golden set, papermodel_test5 S_tst=1
+    on the packed path: with the metrics on the device (plain rows through
+    the interleave) and on the host (u-planes unpacked on the workers) the
+    two agree to 1e-4 dB and 1e-5 SSIM, and fldrx's evaluate on the same
+    items agrees to 0.01 dB and 1e-4 SSIM."""
+    tc = tcfg.papermodel_test5().replace(S_tst=1)
+    jc = jcfg.papermodel_test5().replace(S_tst=1)
+    interp = prepare_model(cfg=tc, device="cpu")[0]
+    on = tev.evaluate(interp, tc, "golden", multiple=8, verbose=False,
+                      dataset=golden_set_768)
+    off = tev.evaluate(interp, tc, "golden", multiple=8, verbose=False,
+                       dataset=golden_set_768, device_metrics=False)
+    assert on.n_samples == off.n_samples == 7
+    assert abs(on.psnr - off.psnr) <= 1e-4 and abs(on.ssim - off.ssim) <= 1e-5
+    monkeypatch.setattr(jev, "get_test_dataset",
+                        lambda *a, **k: golden_set_768)
+    ref = jev.evaluate(j_prepare_model(cfg=jc)[0], jc, "golden", multiple=8,
+                       verbose=False)
+    assert ref.n_samples == 7
+    assert abs(on.psnr - ref.psnr) <= 0.01, (on.psnr, ref.psnr)
+    assert abs(on.ssim - ref.ssim) <= 1e-4, (on.ssim, ref.ssim)

@@ -12,7 +12,8 @@ Tolerances: gather and splat_grad's dvals are summed term for term as their
 plain versions (≤ 1e-5, expected 0); sums over channels and the atomicAdd
 accumulations (splat, gather_grad's dimg) change order, so those are held
 at 1e-4·(1 + |ref|); the correlation kernel sums its C products in channel
-order where torch.mean does not, held at 1e-5·(1 + |ref|).
+order where torch.mean does not, held at 1e-5·(1 + |ref|); the interleave
+is a permutation, held bit for bit.
 """
 
 import ctypes
@@ -21,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from fldrx_torch.ops import _build, correlation, fastconv, fastwarp
+from fldrx_torch.ops import _build, correlation, fastconv, fastwarp, repack
 from fldrx_torch.ops import warp as twarp
 
 torch.set_num_threads(1)
@@ -47,6 +48,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
     ("correlation", {
         # f1, f2, out, B, H, W, C, stream
         "fldrx_correlation_f32": [_P] * 3 + [_I] * 4 + [_P],
+    }),
+    ("repack", {
+        # planes, out, B, H, row_bytes, stream
+        "fldrx_interleave_planes": [_P] * 2 + [_I] * 3 + [_P],
     }),
 ])
 def test_entry_point_prototypes(name, expected):
@@ -255,3 +260,21 @@ def test_correlation_diff_card_matches_cpu(card):
     f = torch.tensor(a, device=card, requires_grad=True)
     with pytest.raises(RuntimeError, match="correlation_diff"):
         correlation.correlation(f, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 4, 24, 40 * 3), torch.float32),     # 16-byte rows
+    ((1, 4, 5, 7 * 3), torch.float32),       # 4-byte rows
+    ((1, 4, 6, 7 * 3), torch.bfloat16),      # 2-byte rows
+])
+def test_interleave_kernel_matches_plain(card, shape, dtype):
+    g = torch.Generator(device="cpu").manual_seed(8)
+    planes = torch.randn(*shape, generator=g).to(dtype).to(card)
+    before = repack.LAUNCHES["interleave"]
+    got = repack.interleave_planes(planes)
+    ref = repack.interleave_planes_plain(planes)
+    torch.cuda.synchronize()
+    assert repack.LAUNCHES["interleave"] == before + 1
+    assert got.shape == ref.shape == (shape[0], 4 * shape[2], shape[3])
+    assert torch.equal(got, ref)
