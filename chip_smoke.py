@@ -13,17 +13,26 @@ Phases, all of them on every run, in order; any failure raises and the
 script exits non-zero:
   1. card check: a CUDA device must be present; prints its name and power
      limit (nvidia-smi).
-  2. kernels: gather (2304×4096×3, smooth random flow of ±40 px), splat
-     (C=4 at 2304×4096, C=49 at 288×512), conv3x3 (enc1, 416→64 at
-     576×1024), and at the training shapes gather (8×512×512×3, mask on),
-     splat (C=4 at 8×512×512, C=49 at 8×64×64), gather_grad (8×512×512×3,
-     mask on) and splat_grad (C=4 at 8×512×512, C=49 at 8×64×64), the
-     teacher's correlation (dec2 8×128×128 C=32, dec3 8×64×64 C=64), and
-     the interleave of the synthesis's u-planes (1×4×576×12288 f32, the
-     padded 4K frame); each against its plain version on the same inputs,
-     with the median time of 20 launches beside the plain version's, the
-     PyTorch library call's (none for the correlation) and the bound from
-     bytes and operations.
+  2. kernels: the build (each kernel's registers and spills; conv3x3's
+     SASS must hold tensor-core instructions, counted with cuobjdump),
+     then gather (2304×4096×3, smooth random flow of ±40 px), splat (C=4
+     at 2304×4096, C=49 at 288×512), and at the training shapes gather
+     (8×512×512×3, mask on), splat (C=4 at 8×512×512, C=49 at 8×64×64),
+     gather_grad (8×512×512×3, mask on) and splat_grad (C=4 at 8×512×512,
+     C=49 at 8×64×64); conv3x3 at the five packed shapes of the 4K path
+     (enc1 576×1024 416→64, enc2 64→32, enc3 288×512 128→64, dec2 192→64,
+     dec3 256→96) on random dense weights and at enc1 on the checkpoint's
+     repacked weights, against float32 F.conv2d (≤ 2e-2 max abs, ≤ 1e-2
+     relative L2), timed through the wrapper and as the bare launch; the
+     teacher's correlation (dec2 8×128×128 C=32, dec3 8×64×64 C=64) and
+     gather (dec2's warp, 8×128×128×32); the interleave of the synthesis's
+     u-planes (1×4×576×12288 f32, the padded 4K frame) and the
+     deinterleave, which no path launches (1×2304×12288 f32, bit for bit
+     and through the round trip). Each against its plain version on the
+     same inputs, with the median time of 20 launches beside the plain
+     version's, the PyTorch library call's (cuDNN bf16 channels-last for
+     conv3x3; none for the correlation) and the bound from bytes and
+     operations.
   3. inference held: prepare_model() with the real checkpoint on cuda and
      on cpu, interpolate_multi_np at 768×1280 with three t values; the two
      outputs must agree to PSNR ≥ 60 dB.
@@ -31,7 +40,8 @@ script exits non-zero:
      ×8 (7 t values, chunks of 4, returned as u-planes as in bench.py), one
      warm-up pair then 3 timed pairs; outputs finite and in [-1.1, 1.1];
      frames/s and peak memory. Kernel launch counts are zeroed just before
-     the timed pairs and read after.
+     the timed pairs and read after; conv3x3 must launch exactly 35 times
+     per pair (5 packed convs × 7 t).
   5a. train step held: the real checkpoint on cuda and on cpu, one
      make_train_step each on the same batch (B=2, 256×256, S_trn=3, bench
      texture with a per-sample pan, t from a seeded torch.Generator);
@@ -59,20 +69,20 @@ script exits non-zero:
      ms per bidirectional call, peak memory, and launches per call, which
      must be correlation 10 (5 decoders × 2 directions) and gather 8 (4
      warped decoders × 2).
-  7. golden clip on the card: (a) papermodel S_tst=3, fast_warp, float32
-     at 512×768, pan family ×8, mean within 0.05 dB of 44.828
-     (tests/test_goldenclip.py's pin); (b) the deploy mix at 2160×4096,
-     pan ×8, mean and per-t PSNR, mean within 0.15 dB of 44.139 (fldrx's
-     reading of the same protocol, PARITY.md §2), with the launch counts
-     zeroed just before its inference and read after; (c) metrics_torch on two
-     of the 4K predictions against the host's psnr and ssim_bgr: ≤ 1e-4 dB
-     and ≤ 1e-5 SSIM; (d) evaluate() on the same 4K clip as an 8-bit test
+  7. golden clip on the card: (a) papermodel S_tst=3, fast_warp, float32 at
+     512×768, pan family ×8, mean within 0.05 dB of 44.828
+     (tests/test_goldenclip.py's pin); (b) the deploy mix at 2160×4096, pan
+     ×8, mean and per-t PSNR, mean within 0.15 dB of 44.139 (fldrx's reading
+     of the same protocol, PARITY.md §2), with the launch counts zeroed just
+     before its inference and read after (conv3x3 35); (c) metrics_torch on
+     two of the 4K predictions against the host's psnr and ssim_bgr: ≤ 1e-4
+     dB and ≤ 1e-5 SSIM; (d) evaluate() on the same 4K clip as an 8-bit test
      set (GoldenTestSet), the deploy mix, once with the metrics on the card
      (plain rows through the interleave kernel; launch counts zeroed just
-     before and read after) and once on the host (u-planes unpacked on the
-     worker threads): the two agree to 1e-4 dB and 1e-5 SSIM, and the mean
-     lies within 0.15 dB of 44.139 moved by the 8-bit rounding of the
-     targets (each t's float MSE plus the targets' rounding MSE).
+     before and read after, conv3x3 35) and once on the host (u-planes
+     unpacked on the worker threads): the two agree to 1e-4 dB and 1e-5 SSIM,
+     and the mean lies within 0.15 dB of 44.139 moved by the 8-bit rounding
+     of the targets (each t's float MSE plus the targets' rounding MSE).
   8. a JSON line for the kernels, the card line, then the last line
      {"ok": true, "device": {...}}.
 
@@ -159,6 +169,16 @@ def index_add_yardstick(vals, tx, ty):
     return lambda: canvas.index_add_(0, idx, upd)
 
 
+def tensor_core_instructions(lib: str) -> int:
+    """The number of HMMA (mma.sync) and HGMMA (wgmma) instructions in the
+    SASS of a built library, by the toolkit's cuobjdump."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    sass = subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass",
+                           lib], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sum(("HMMA" in ln or "HGMMA" in ln) for ln in sass.splitlines())
+
+
 def excess(got, ref, rel: float = 1e-4) -> float:
     """max(|got − ref| − rel·(1 + |ref|)): ≤ 0 when within tolerance."""
     return ((got - ref).abs() - rel * (1 + ref.abs())).max().item()
@@ -168,7 +188,7 @@ def check_kernels(dev, peaks):
     import torch
     import torch.nn.functional as F
 
-    from fldrx_torch.ops import _build, fastconv, fastwarp
+    from fldrx_torch.ops import _build, fastwarp
     from fldrx_torch.ops.resize import resize_2d
     from fldrx_torch.ops.warp import sample_coords
 
@@ -179,8 +199,13 @@ def check_kernels(dev, peaks):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    hmma = tensor_core_instructions(_build.library_path("conv3x3"))
+    print(f"conv3x3: {hmma} HMMA/HGMMA instructions in its SASS", flush=True)
+    if not hmma:
+        raise AssertionError("conv3x3 was not compiled to tensor-core "
+                             "instructions")
     g = torch.Generator(device=dev).manual_seed(0)
-    bw, bf16_rate, f32_rate = peaks
+    f32_rate = peaks[2]
     results = {}
 
     # gather: an im_tot gather at 4K, with the 0.999 mask
@@ -247,37 +272,6 @@ def check_kernels(dev, peaks):
     results["splat"]["max_abs_err"] = max(c["max_abs_err"] for c in checks)
     results["splat"]["checks"] = checks
 
-    # conv3x3: enc1 of the packed refine UNet at 4K
-    H, W, Cin, K = 576, 1024, 416, 64
-    x = (torch.rand(1, H, W, Cin, device=dev, generator=g) * 2 - 1
-         ).to(torch.bfloat16)
-    std = float(np.sqrt(2.0 / (9 * Cin + 9 * K)))
-    w = (torch.randn(K, Cin, 3, 3, device=dev, generator=g) * std
-         ).to(torch.bfloat16)
-    bias = torch.randn(K, device=dev, generator=g) * 0.1
-    got = fastconv.conv3x3(x, w, bias).float()
-    ref = F.conv2d(x.permute(0, 3, 1, 2).float(), w.float(), bias,
-                   padding=1).permute(0, 2, 3, 1)
-    torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    rel = ((got - ref).norm() / ref.norm()).item()
-    if not (err <= 2e-2 and rel <= 1e-2):
-        raise AssertionError(f"conv3x3 disagrees with float32 F.conv2d: "
-                             f"max abs {err}, rel L2 {rel}")
-    x_cl = x.permute(0, 3, 1, 2)                 # channels-last NCHW view
-    nbytes = 2 * (H * W * Cin + 9 * Cin * K + H * W * K) + 4 * K
-    b, by = bound_ms(peaks, nbytes, 2.0 * H * W * K * Cin * 9, bf16_rate)
-    results["conv3x3"] = dict(
-        name="conv3x3", route="cuda", source="fldrx_torch/csrc/conv3x3.cu",
-        replaces="fldrx/ops/fastconv.py:69",
-        max_abs_err=err, rel_l2_err=rel,
-        ms=median_ms(lambda: fastconv.conv3x3(x, w, bias)),
-        plain_ms=median_ms(lambda: fastconv.conv3x3_plain(x, w, bias)),
-        bound_ms=b, bound_by=by,
-        library_ms=median_ms(lambda: F.conv2d(x_cl, w, bias.to(torch.bfloat16),
-                                              padding=1)),
-        shape=f"x 1x{H}x{W}x{Cin} bf16 -> {K}")
-    del x, w, bias, got, ref, x_cl
     torch.cuda.empty_cache()
     for r in results.values():
         print(f"kernel {r['name']}: err {r['max_abs_err']:.3g}, "
@@ -446,14 +440,164 @@ def check_interleave(dev, peaks, results):
           flush=True)
 
 
-def check_correlation(dev, peaks, results):
-    """Phase 2 at the teacher's two largest cost volumes on the training
-    recipe's batch (8 pairs of 512×512): dec2 (128×128, C=32) and dec3
-    (64×64, C=64). No single PyTorch call computes the 81-channel
-    volume, so there is no library yardstick."""
+# the packed refine UNet's conv3x3 calls on the 4K path (refine_unet_s2d_core
+# at the quarter grid 576×1024 and the eighth grid 288×512), 7 each per pair
+CONV_SHAPES = (("enc1", 576, 1024, 416, 64), ("enc2", 576, 1024, 64, 32),
+               ("enc3", 288, 512, 128, 64), ("dec2", 576, 1024, 192, 64),
+               ("dec3", 576, 1024, 256, 96))
+
+
+def conv_row(peaks, x, w, bias, label):
+    """Hold conv3x3 on (x, w, bias) against float32 F.conv2d (≤ 2e-2 max
+    abs, ≤ 1e-2 relative L2) and time it: through the wrapper (weight
+    packing included), the kernel launch alone, the plain version and
+    cuDNN bf16 channels-last; the bound from the dense conv's bytes and
+    operations."""
+    import torch
+    import torch.nn.functional as F
+
+    from fldrx_torch.ops import _build, fastconv
+
+    _, H, W, Cin = x.shape
+    K = w.shape[0]
+    got = fastconv.conv3x3(x, w, bias).float()
+    ref = F.conv2d(x.permute(0, 3, 1, 2).float(), w.float(), bias,
+                   padding=1).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    if not (err <= 2e-2 and rel <= 1e-2):
+        raise AssertionError(f"conv3x3 {label} disagrees with float32 "
+                             f"F.conv2d: max abs {err}, rel L2 {rel}")
+    del got, ref
+    nb = fastconv.block_n(K)
+    wp, bf = fastconv.pack_weights(w, nb), bias.float()
+    out = torch.empty(1, H, W, K, device=x.device, dtype=torch.bfloat16)
+    lib = _build.library("conv3x3")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        _build.check(lib.fldrx_conv3x3_bf16(
+            x.data_ptr(), wp.data_ptr(), bf.data_ptr(), out.data_ptr(), 1, H,
+            W, Cin, K, nb, stream), "conv3x3")
+
+    x_cl = x.permute(0, 3, 1, 2)                 # channels-last NCHW view
+    w_cl = w.contiguous(memory_format=torch.channels_last)
+    b16 = bias.to(torch.bfloat16)
+    nbytes = 2 * (H * W * Cin + 9 * Cin * K + H * W * K) + 4 * K
+    b, by = bound_ms(peaks, nbytes, 2.0 * H * W * K * Cin * 9, peaks[1])
+    return dict(
+        shape=f"{label} x 1x{H}x{W}x{Cin} bf16 -> {K}", max_abs_err=err,
+        rel_l2_err=rel,
+        ms=median_ms(lambda: fastconv.conv3x3(x, w, bias)),
+        kernel_ms=median_ms(launch),
+        plain_ms=median_ms(lambda: fastconv.conv3x3_plain(x, w, bias)),
+        bound_ms=b, bound_by=by,
+        library_ms=median_ms(lambda: F.conv2d(x_cl, w_cl, b16, padding=1)))
+
+
+def check_conv3x3(dev, peaks, results):
+    """Phase 2 for conv3x3 at the five packed shapes of the 4K path on
+    random dense weights, and at enc1 on the checkpoint's weights repacked
+    as the model repacks them (mostly structural zeros)."""
     import torch
 
-    from fldrx_torch.ops import correlation
+    from fldrx_torch.api import DEFAULT_NPZ
+    from fldrx_torch.model.fldrnet import _repack_conv_w
+    from fldrx_torch.weights import load_npz, params_from_numpy
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for label, H, W, Cin, K in CONV_SHAPES:
+        x = (torch.rand(1, H, W, Cin, device=dev, generator=g) * 2 - 1
+             ).to(torch.bfloat16)
+        std = float(np.sqrt(2.0 / (9 * Cin + 9 * K)))
+        w = (torch.randn(K, Cin, 3, 3, device=dev, generator=g) * std
+             ).to(torch.bfloat16)
+        bias = torch.randn(K, device=dev, generator=g) * 0.1
+        rows.append(conv_row(peaks, x, w, bias, label))
+        if label == "enc1":
+            p = params_from_numpy(load_npz(DEFAULT_NPZ)[0]["vfinet"]["refine"]
+                                  ["enc1"], dev)
+            w_real = _repack_conv_w(p["w"], 4, 2, 2, 1).to(torch.bfloat16)
+            real = conv_row(peaks, x, w_real, p["b"].repeat(4),
+                            "enc1, checkpoint weights")
+            del p, w_real
+        del x, w, bias
+        torch.cuda.empty_cache()
+    results["conv3x3"] = dict(
+        name="conv3x3", route="cuda", source="fldrx_torch/csrc/conv3x3.cu",
+        replaces="fldrx/ops/fastconv.py:69",
+        tolerance="2e-2 max abs, 1e-2 rel L2 vs float32 F.conv2d",
+        library_call="F.conv2d bf16 channels-last (cuDNN)", **rows[0])
+    results["conv3x3"]["max_abs_err"] = max(r["max_abs_err"]
+                                            for r in rows + [real])
+    results["conv3x3"]["shapes"] = rows[1:] + [real]
+    for r in rows + [real]:
+        print(f"kernel conv3x3: err {r['max_abs_err']:.3g} (rel "
+              f"{r['rel_l2_err']:.3g}), {r['ms']:.4f} ms (kernel "
+              f"{r['kernel_ms']:.4f}, plain {r['plain_ms']:.3f}, cuDNN "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']}) at {r['shape']}", flush=True)
+
+
+def check_deinterleave(dev, peaks, results):
+    """Phase 2 for the deinterleave, which no path launches (fldrx has no
+    caller of extract_planes): plain rows of the padded 4K frame,
+    1×2304×12288 f32, bit for bit against the plain version, and the round
+    trip through the interleave."""
+    import torch
+
+    from fldrx_torch.ops import repack
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, H, WC = 1, 2304, 4096 * 3
+    rows = torch.randn(B, H, WC, device=dev, generator=g)
+    got = repack.extract_planes(rows)
+    ref = repack.extract_planes_plain(rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("deinterleave disagrees with its plain version")
+    if not torch.equal(repack.interleave_planes(got), rows):
+        raise AssertionError("interleave_planes(extract_planes(x)) != x")
+    b, by = bound_ms(peaks, 2 * 4 * B * H * WC, 0, peaks[2])
+    results["deinterleave"] = dict(
+        name="deinterleave", route="cuda",
+        source="fldrx_torch/csrc/repack.cu",
+        replaces="fldrx/ops/repack.py:91",
+        also_replaces="fldrx/ops/repack.py:182",
+        path="none: fldrx has no caller of extract_planes; launched here "
+             "in phase 2 only",
+        library_call="rows.view(B, H // 4, 4, WC).transpose(1, 2)"
+                     ".contiguous()",
+        tolerance="bit-exact, and the round trip", round_trip_exact=True,
+        max_abs_err=(got - ref).abs().max().item(),
+        ms=median_ms(lambda: repack.extract_planes(rows)),
+        plain_ms=median_ms(lambda: repack.extract_planes_plain(rows)),
+        bound_ms=b, bound_by=by,
+        library_ms=median_ms(lambda: rows.view(B, H // 4, 4, WC)
+                             .transpose(1, 2).contiguous()),
+        shape=f"rows {B}x{H}x{WC} f32")
+    del rows, got, ref
+    torch.cuda.empty_cache()
+    r = results["deinterleave"]
+    print(f"kernel deinterleave: err {r['max_abs_err']:.3g}, {r['ms']:.4f} "
+          f"ms (plain {r['plain_ms']:.3f}, library {r['library_ms']:.4f}, "
+          f"bound {r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}",
+          flush=True)
+
+
+def check_teacher_kernels(dev, peaks, results):
+    """Phase 2 at the teacher's shapes on the training recipe's batch (8
+    pairs of 512×512): the correlation at its two largest cost volumes,
+    dec2 (128×128, C=32) and dec3 (64×64, C=64), where no single PyTorch
+    call computes the 81-channel volume, so there is no library yardstick;
+    and the gather of dec2's warp (8×128×128×32, mask on)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fldrx_torch.ops import correlation, fastwarp
+    from fldrx_torch.ops.resize import resize_2d
 
     g = torch.Generator(device=dev).manual_seed(2)
     rows = []
@@ -486,7 +630,41 @@ def check_correlation(dev, peaks, results):
     results["correlation"]["max_abs_err"] = max(r["max_abs_err"]
                                                  for r in rows)
     results["correlation"]["checks"] = rows[1:]
+
+    # the gather of the teacher's dec2 warp: features at 128×128 sampled
+    # along a smooth flow of ±8 px
+    B, H, W, C = 8, 128, 128, 32
+    feat = torch.randn(B, H, W, C, device=dev, generator=g)
+    coarse = (torch.rand(B, 2, 8, 8, device=dev, generator=g) * 2 - 1) * 8
+    flow = F.interpolate(coarse, size=(H, W), mode="bilinear",
+                         align_corners=False)
+    sx = torch.arange(W, device=dev, dtype=torch.float32) + flow[:, 0]
+    sy = torch.arange(H, device=dev, dtype=torch.float32)[:, None] + flow[:, 1]
+    got = fastwarp.gather(feat, sx, sy, True)
+    ref = fastwarp.gather_plain(feat, sx, sy, True)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    if not err <= 1e-5:
+        raise AssertionError(f"gather (teacher shape) disagrees: {err}")
+    feat_nchw = feat.permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([(2 * sx + 1) / W - 1, (2 * sy + 1) / H - 1], -1)
+    px = B * H * W
+    b, by = bound_ms(peaks, 4 * (2 * px * C + 2 * px), px * (7 * C + 12),
+                     peaks[2])
+    r = results["gather"]["teacher_shape"] = dict(
+        ms=median_ms(lambda: fastwarp.gather(feat, sx, sy, True)),
+        plain_ms=median_ms(lambda: fastwarp.gather_plain(feat, sx, sy, True)),
+        bound_ms=b, bound_by=by,
+        library_ms=median_ms(lambda: F.grid_sample(
+            feat_nchw, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=False)),
+        shape=f"img {B}x{H}x{W}x{C} f32, mask on", max_abs_err=err)
+    del feat, coarse, flow, sx, sy, got, ref, feat_nchw, grid
     torch.cuda.empty_cache()
+    print(f"kernel gather: err {err:.3g}, {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.3f}, library {r['library_ms']:.4f}, bound "
+          f"{r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}",
+          flush=True)
     for r in rows:
         print(f"kernel correlation: err {r['max_abs_err']:.3g}, "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library: none, "
@@ -523,6 +701,16 @@ def require_launched(seen, kernels, where):
     if missing:
         raise AssertionError(f"{where}: kernels not launched: {missing} "
                              f"({seen})")
+
+
+CONV_PER_PAIR = 35      # 5 packed convs × 7 t values of a ×8 pair
+
+
+def require_conv_per_pair(seen, pairs: int, where: str):
+    if seen["conv3x3"] != CONV_PER_PAIR * pairs:
+        raise AssertionError(f"{where}: conv3x3 launched {seen['conv3x3']} "
+                             f"times in {pairs} pair(s), expected "
+                             f"{CONV_PER_PAIR} per pair")
 
 
 def reset_launches():
@@ -618,6 +806,7 @@ def main_path_4k(card: str):
         raise AssertionError(f"outputs out of range: [{lo}, {hi}], "
                              f"{nonfinite} non-finite")
     require_launched(seen, INFER_KERNELS, "inference at 4K")
+    require_conv_per_pair(seen, iters, "inference at 4K")
     return seen
 
 
@@ -917,6 +1106,7 @@ def golden_clip(card: str):
         "c_max_psnr_diff_db": d_psnr, "c_max_ssim_diff": d_ssim,
         "c_s": time.time() - t0, "card": card}), flush=True)
     require_launched(seen, INFER_KERNELS, "golden clip 4K")
+    require_conv_per_pair(seen, 1, "golden clip 4K")
     seen_eval = golden_evaluate(interp, frames, ts, gts, ps_b, card)
     if not abs(mean_a - GOLDEN_PIN_512) < 0.05:
         raise AssertionError(f"golden clip 512x768: {mean_a} dB, pinned "
@@ -971,6 +1161,7 @@ def golden_evaluate(interp, frames, ts, gts, ps_float, card: str):
         "fps_device_metrics": on.frames_per_sec, "launches": seen,
         "card": card}), flush=True)
     require_launched(seen, EVAL_KERNELS, "evaluate, metrics on the card")
+    require_conv_per_pair(seen, 1, "evaluate, metrics on the card")
     if not on.n_samples == off.n_samples == len(ts):
         raise AssertionError(f"evaluate scored {on.n_samples}, "
                              f"{off.n_samples} of {len(ts)} frames")
@@ -1013,8 +1204,10 @@ def main() -> int:
     results = phase("2 kernels", check_kernels, "cuda", peaks)
     phase("2 training-shape kernels", check_train_kernels, "cuda", peaks,
           results)
-    phase("2 correlation", check_correlation, "cuda", peaks, results)
+    phase("2 conv3x3", check_conv3x3, "cuda", peaks, results)
+    phase("2 teacher kernels", check_teacher_kernels, "cuda", peaks, results)
     phase("2 interleave", check_interleave, "cuda", peaks, results)
+    phase("2 deinterleave", check_deinterleave, "cuda", peaks, results)
     phase("3 inference held", main_path_held)
     seen = phase("4 inference 4K", main_path_4k, card)
     phase("5a train step held", train_step_held)
@@ -1022,17 +1215,17 @@ def main() -> int:
     phase("6a teacher held", teacher_held)
     seen_teacher = phase("6b teacher full width", teacher_full, card)
     seen_eval = phase("7 golden clip", golden_clip, card)
+    # launches: the count of the path the row is timed for (the 4K pairs
+    # for the forward kernels, the timed train steps for the VJP kernels,
+    # the timed teacher calls for the correlation, the evaluator's
+    # device-metrics run for the interleave; the deinterleave is on no
+    # path, and the 4K pairs show its 0); launches_train: over the 5 timed
+    # train steps; launches_teacher: over the 5 timed teacher calls;
+    # launches_eval: over that run
+    path_of = {"gather_grad": seen_train, "splat_grad": seen_train,
+               "correlation": seen_teacher, "interleave": seen_eval}
     for k, r in results.items():
-        # launches: the count of the path the row is timed for (the 4K
-        # pairs for the forward kernels, the timed train steps for the VJP
-        # kernels, the timed teacher calls for the correlation, the
-        # evaluator's device-metrics run for the interleave);
-        # launches_train: over the 5 timed train steps; launches_teacher:
-        # over the 5 timed teacher calls; launches_eval: over that run
-        r["launches"] = (seen[k] if k in INFER_KERNELS
-                         else seen_teacher[k] if k == "correlation"
-                         else seen_eval[k] if k == "interleave"
-                         else seen_train[k])
+        r["launches"] = path_of.get(k, seen)[k]
         r["launches_train"] = seen_train[k]
         r["launches_teacher"] = seen_teacher[k]
         r["launches_eval"] = seen_eval[k]

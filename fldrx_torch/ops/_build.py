@@ -70,7 +70,9 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def _lib_path(name: str) -> str:
+def library_path(name: str) -> str:
+    """Where the library built from csrc/<name>.cu lives (named by a hash
+    of the source and the flags)."""
     with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
         h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
@@ -79,7 +81,7 @@ def _lib_path(name: str) -> str:
 def _start(name: str):
     """Start the nvcc for `name` unless its library exists; returns
     (process or None, library path, temporary output path)."""
-    path = _lib_path(name)
+    path = library_path(name)
     if os.path.exists(path):
         return None, path, None
     nvcc = _nvcc()

@@ -11,8 +11,10 @@ this form because it reads the refine UNet's space-to-depth output in place
   tensor takes the plain version. `LAUNCHES` counts kernel launches.
 * `planes_to_plain_np` on the host, for frames that are fetched anyway.
 
-fldrx's inverse, `extract_planes`, runs on no path of fldrx and is not
-ported.
+`extract_planes` is the inverse, plain rows → u-planes, through the
+`deinterleave_kernel` of the same source under the same rules. fldrx has no
+caller of its `extract_planes`, so no model path of the port launches it;
+chip_smoke.py holds it on the card.
 """
 
 from __future__ import annotations
@@ -22,10 +24,10 @@ import torch
 
 from . import _build
 
-__all__ = ["interleave_planes", "interleave_planes_plain",
-           "planes_to_plain_np", "LAUNCHES"]
+__all__ = ["interleave_planes", "interleave_planes_plain", "extract_planes",
+           "extract_planes_plain", "planes_to_plain_np", "LAUNCHES"]
 
-LAUNCHES = {"interleave": 0}
+LAUNCHES = {"interleave": 0, "deinterleave": 0}
 
 
 def interleave_planes_plain(planes: torch.Tensor) -> torch.Tensor:
@@ -35,30 +37,62 @@ def interleave_planes_plain(planes: torch.Tensor) -> torch.Tensor:
         B, 4 * Hp4, WC)
 
 
+def _check_dtype(fn: str, x: torch.Tensor) -> None:
+    """The kernels move float32 and bfloat16 rows; both wrappers refuse
+    any other dtype on every device, so the CPU behaves as the card."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{fn}: the repack kernels take float32 or bfloat16, "
+                        f"got {x.dtype}")
+
+
+def _launch(fn: str, src: torch.Tensor, shape, H: int) -> torch.Tensor:
+    """Run the repack entry point `fn` on a CUDA tensor `src` of frames of
+    H rows, plain or as u-planes, into a new tensor of `shape`, the other
+    form."""
+    if src.requires_grad:
+        raise RuntimeError(f"{fn}: the kernel is inference only")
+    src = src.contiguous()
+    out = torch.empty(shape, dtype=src.dtype, device=src.device)
+    err = getattr(_build.library("repack"), f"fldrx_{fn}")(
+        src.data_ptr(), out.data_ptr(), src.shape[0], H,
+        src.shape[-1] * src.element_size(),
+        torch.cuda.current_stream(src.device).cuda_stream)
+    _build.check(err, fn)
+    return out
+
+
 def interleave_planes(planes: torch.Tensor) -> torch.Tensor:
     """[B, 4, H/4, W·C] u-planes → [B, H, W·C] plain rows, bit-exact; on
     the card through the kernel."""
     if planes.dim() != 4 or planes.shape[1] != 4:
         raise ValueError(f"interleave_planes: planes {tuple(planes.shape)}, "
                          "expected [B, 4, H/4, W·C]")
+    _check_dtype("interleave_planes", planes)
     if planes.device.type == "cpu":
         return interleave_planes_plain(planes)
-    if planes.requires_grad:
-        raise RuntimeError("interleave_planes: the kernel is inference only")
-    if planes.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the interleave kernel takes float32 or bfloat16, "
-                        f"got {planes.dtype}")
-    planes = planes.contiguous()
     B, _, Hp4, WC = planes.shape
-    out = torch.empty((B, 4 * Hp4, WC), dtype=planes.dtype,
-                      device=planes.device)
-    lib = _build.library("repack")
-    err = lib.fldrx_interleave_planes(
-        planes.data_ptr(), out.data_ptr(), B, 4 * Hp4,
-        WC * planes.element_size(),
-        torch.cuda.current_stream(planes.device).cuda_stream)
+    out = _launch("interleave_planes", planes, (B, 4 * Hp4, WC), 4 * Hp4)
     LAUNCHES["interleave"] += 1
-    _build.check(err, "interleave_planes")
+    return out
+
+
+def extract_planes_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of `extract_planes`."""
+    return torch.stack([rows[:, u::4] for u in range(4)], 1)
+
+
+def extract_planes(rows: torch.Tensor) -> torch.Tensor:
+    """[B, H, W·C] plain rows → [B, 4, H/4, W·C] u-planes (row y to plane
+    y % 4, row y // 4), bit-exact; on the card through the kernel."""
+    if rows.dim() != 3 or rows.shape[1] % 4:
+        raise ValueError(f"extract_planes: rows {tuple(rows.shape)}, "
+                         "expected [B, H, W·C] with H a multiple of 4")
+    _check_dtype("extract_planes", rows)
+    if rows.device.type == "cpu":
+        return extract_planes_plain(rows)
+    B, H, WC = rows.shape
+    out = _launch("extract_planes", rows, (B, 4, H // 4, WC), H)
+    LAUNCHES["deinterleave"] += 1
     return out
 
 

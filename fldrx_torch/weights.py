@@ -18,6 +18,8 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 
 def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     """(flat name, leaf) pairs of a nested dict/list tree, in tree order;
@@ -95,12 +97,13 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32):
 _PWC_DECONVS = ("upflow", "upfeat")
 
 
-def pwc_params_from_numpy(tree, device="cpu"):
+def pwc_params_from_numpy(tree, device=None):
     """fldrx's PWC-Net tree as numpy (conv weights HWIO, deconv weights
     fldrx's flipped HWIO, see fldrx/model/pwcnet.py
     deconv_weight_from_torch) → the port's teacher tree: conv weights OIHW,
     deconv weights torch's ConvTranspose2d [in, out, kh, kw] (the flip and
-    transpose undone)."""
+    transpose undone). `device` None means cuda (`resolve_device`)."""
+    device = resolve_device(device)
     out = params_from_numpy(tree, device)
     for name, dec in out.items():
         for k in _PWC_DECONVS:
@@ -112,17 +115,20 @@ def pwc_params_from_numpy(tree, device="cpu"):
     return out
 
 
-def load_pwc_npz(path: str, device="cpu"):
+def load_pwc_npz(path: str, device=None):
     """The teacher's weights from the npz that fldrx's converter writes
-    (`python -m fldrx.tools.convert_ckpt --pwc`), read by its flat names."""
+    (`python -m fldrx.tools.convert_ckpt --pwc`), read by its flat names;
+    `device` None means cuda."""
     return pwc_params_from_numpy(load_npz(path)[0], device)
 
 
-def convert_pwc_state_dict(sd, device="cpu"):
+def convert_pwc_state_dict(sd, device=None):
     """The reference PWCNet state dict (OpticalFlow/PWCNet.py; values torch
     tensors or numpy arrays) → the port's teacher tree, with the key map of
     fldrx's convert_pwc_checkpoint. Conv and deconv weights keep torch's own
-    layouts, which are the port's."""
+    layouts, which are the port's. `device` None means cuda."""
+    device = resolve_device(device)
+
     def t(name):
         v = sd[name]
         v = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)

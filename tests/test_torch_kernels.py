@@ -13,7 +13,11 @@ plain versions (≤ 1e-5, expected 0); sums over channels and the atomicAdd
 accumulations (splat, gather_grad's dimg) change order, so those are held
 at 1e-4·(1 + |ref|); the correlation kernel sums its C products in channel
 order where torch.mean does not, held at 1e-5·(1 + |ref|); the interleave
-is a permutation, held bit for bit.
+and the deinterleave are permutations, held bit for bit; conv3x3 rounds its
+output to bf16 (one ulp is 1/128 relative), held at 2e-2 max abs and 1e-2
+relative L2 against float32 F.conv2d.
+
+The layout of conv3x3's packed weights is held on the CPU as well.
 """
 
 import ctypes
@@ -42,8 +46,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
         "fldrx_gather_grad_f32": [_P] * 7 + [_I] * 7 + [_P],
     }),
     ("conv3x3", {
-        # x, w (HWIO), bias, out, B, H, W, Cin, K, stream
-        "fldrx_conv3x3_bf16": [_P] * 4 + [_I] * 5 + [_P],
+        # x, w (packed), bias, out, B, H, W, Cin, K, block_n, stream
+        "fldrx_conv3x3_bf16": [_P] * 4 + [_I] * 6 + [_P],
     }),
     ("correlation", {
         # f1, f2, out, B, H, W, C, stream
@@ -52,6 +56,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
     ("repack", {
         # planes, out, B, H, row_bytes, stream
         "fldrx_interleave_planes": [_P] * 2 + [_I] * 3 + [_P],
+        # rows, out, B, H, row_bytes, stream
+        "fldrx_extract_planes": [_P] * 2 + [_I] * 3 + [_P],
     }),
 ])
 def test_entry_point_prototypes(name, expected):
@@ -96,18 +102,54 @@ def test_splat_kernel_matches_plain(card, C):
     assert ((got - ref).abs() <= 1e-4 * (1 + ref.abs())).all()
 
 
+@pytest.mark.parametrize("K,Cin", [(32, 16), (40, 48), (96, 24), (130, 13)])
+def test_conv3x3_weight_layout(K, Cin):
+    """pack_weights puts weight [k, c, ky, kx] where the kernel reads it:
+    chunk c // 16, block k // nb, tap ky·3 + kx, row k % nb, lane c % 16;
+    zeros past K and Cin."""
+    g = torch.Generator().manual_seed(K)
+    w = torch.randn(K, Cin, 3, 3, generator=g)
+    nb = fastconv.block_n(K)
+    wp = fastconv.pack_weights(w, nb)
+    nch, nkb = -(-Cin // 16), -(-K // nb)
+    assert wp.shape == (nch, nkb, 9, nb, 16) and wp.dtype == torch.bfloat16
+    assert wp.is_contiguous()
+    flat = wp.reshape(-1)
+    k, c, ky, kx = np.meshgrid(np.arange(K), np.arange(Cin), np.arange(3),
+                               np.arange(3), indexing="ij")
+    idx = (((((c // 16) * nkb + k // nb) * 9 + ky * 3 + kx) * nb + k % nb)
+           * 16 + c % 16)
+    assert torch.equal(flat[torch.tensor(idx)], w.to(torch.bfloat16))
+    rest = torch.ones(flat.numel(), dtype=torch.bool)
+    rest[torch.tensor(idx.reshape(-1))] = False
+    assert not flat[rest].any()
+
+
 @pytest.mark.cuda
-def test_conv3x3_kernel_matches_plain(card):
-    g = torch.Generator(device="cpu").manual_seed(2)
-    x = (torch.rand(1, 40, 72, 48, generator=g) * 2 - 1).to(card, torch.bfloat16)
-    w = (torch.randn(40, 48, 3, 3, generator=g) * 0.05).to(card, torch.bfloat16)
-    b = torch.randn(40, generator=g).to(card)
+@pytest.mark.parametrize("B,H,W,Cin,K", [
+    (1, 40, 72, 48, 40),      # a ragged K: 40 of block_n 64
+    (1, 37, 45, 64, 32),      # H, W no multiple of the tile; block_n 32
+    (2, 21, 50, 48, 64),      # block_n 64, two frames
+    (1, 19, 33, 32, 96),      # block_n 96 (16-row tiles)
+    (1, 23, 17, 13, 5),       # Cin padded to 16 in the wrapper, odd K
+    (1, 10, 70, 40, 130),     # K over 96: three blocks of 64
+])
+def test_conv3x3_kernel_matches_plain(card, B, H, W, Cin, K):
+    g = torch.Generator(device="cpu").manual_seed(Cin + K)
+    x = (torch.rand(B, H, W, Cin, generator=g) * 2 - 1).to(card, torch.bfloat16)
+    # outputs stay under 8, where half a bf16 ulp is below the 2e-2 bound
+    w = (torch.randn(K, Cin, 3, 3, generator=g) * 0.05).to(card, torch.bfloat16)
+    b = torch.randn(K, generator=g).to(card)
+    before = fastconv.LAUNCHES["conv3x3"]
     got = fastconv.conv3x3(x, w, b).float()
     ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2).float(), w.float(),
                                      b, padding=1).permute(0, 2, 3, 1)
     torch.cuda.synchronize()
+    assert fastconv.LAUNCHES["conv3x3"] == before + 1
+    assert got.shape == ref.shape
     assert (got - ref).abs().max().item() <= 2e-2
     assert ((got - ref).norm() / ref.norm()).item() <= 1e-2
+    assert torch.equal(fastconv.conv3x3(x, w, b).float(), got)   # deterministic
 
 
 def _close(got, ref, rel=1e-4):
@@ -278,3 +320,24 @@ def test_interleave_kernel_matches_plain(card, shape, dtype):
     assert repack.LAUNCHES["interleave"] == before + 1
     assert got.shape == ref.shape == (shape[0], 4 * shape[2], shape[3])
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 24, 40 * 3), torch.float32),        # 16-byte rows
+    ((1, 20, 7 * 3), torch.float32),         # 4-byte rows
+    ((1, 24, 7 * 3), torch.bfloat16),        # 2-byte rows
+])
+def test_deinterleave_kernel_matches_plain(card, shape, dtype):
+    g = torch.Generator(device="cpu").manual_seed(9)
+    rows = torch.randn(*shape, generator=g).to(dtype).to(card)
+    before = repack.LAUNCHES["deinterleave"]
+    got = repack.extract_planes(rows)
+    ref = repack.extract_planes_plain(rows)
+    torch.cuda.synchronize()
+    assert repack.LAUNCHES["deinterleave"] == before + 1
+    assert got.shape == ref.shape == (shape[0], 4, shape[1] // 4, shape[2])
+    assert torch.equal(got, ref)
+    assert torch.equal(repack.interleave_planes(got), rows)
+    with pytest.raises(RuntimeError, match="inference only"):
+        repack.extract_planes(rows.float().requires_grad_())

@@ -48,7 +48,8 @@ def fldrx_params():
 
 @pytest.fixture(scope="module")
 def port_params(fldrx_params):
-    return pwc_params_from_numpy(jax.tree.map(np.asarray, fldrx_params))
+    return pwc_params_from_numpy(jax.tree.map(np.asarray, fldrx_params),
+                                 device="cpu")
 
 
 def _pair(shape, seed):
@@ -119,7 +120,8 @@ def test_deconv_matches_fldrx():
     w_j = jp.deconv_weight_from_torch(w_t)
     ref = np.asarray(jp._deconv4x4s2({"w": jnp.asarray(w_j),
                                       "b": jnp.asarray(b)}, jnp.asarray(x)))
-    carried = pwc_params_from_numpy({"dec2": {"upfeat": {"w": w_j, "b": b}}})
+    carried = pwc_params_from_numpy({"dec2": {"upfeat": {"w": w_j, "b": b}}},
+                                    device="cpu")
     np.testing.assert_array_equal(carried["dec2"]["upfeat"]["w"].numpy(), w_t)
     got = tp.deconv({"w": torch.tensor(w_t), "b": torch.tensor(b)},
                     torch.tensor(x)).numpy()
@@ -279,16 +281,38 @@ def test_convert_pwc_state_dict_matches_fldrx(tmp_path):
     sd = _synth_pwc_state_dict(np.random.RandomState(0))
     src = str(tmp_path / "pwc-synth.pt")
     torch.save(sd, src)
-    got = dict(named_leaves(convert_pwc_state_dict(sd)))
+    got = dict(named_leaves(convert_pwc_state_dict(sd, device="cpu")))
     ref = dict(named_leaves(pwc_params_from_numpy(
-        jp.convert_pwc_checkpoint(src))))
+        jp.convert_pwc_checkpoint(src), device="cpu")))
     assert sorted(got) == sorted(ref) and len(got) == 2 * (18 + 38 + 7)
     for k in ref:
         assert torch.equal(got[k], ref[k]), k
     assert torch.equal(got["dec2/upflow/w"],
                        sd["moduleTwo.moduleUpflow.weight"])
     npz = dict(named_leaves(load_pwc_npz(convert_pwc(
-        src, str(tmp_path / "pwc.npz")))))
+        src, str(tmp_path / "pwc.npz")), device="cpu")))
     assert sorted(npz) == sorted(ref)
     for k in ref:
         assert torch.equal(npz[k], ref[k]), k
+
+
+def test_pwc_loaders_default_to_the_card(tmp_path):
+    """The teacher's loaders put the weights on cuda when no device is
+    given: without a GPU they raise rather than fall back to the CPU, and
+    with `device="cpu"` they load there."""
+    rng = np.random.RandomState(2)
+    path = str(tmp_path / "pwc.npz")
+    np.savez(path, **{"dec2/upfeat/w": rng.randn(4, 4, 3, 5).astype(np.float32),
+                      "dec2/upfeat/b": rng.randn(3).astype(np.float32)})
+    sd = _synth_pwc_state_dict(rng)
+    assert load_pwc_npz(path, device="cpu")["dec2"]["upfeat"]["w"].is_cpu
+    assert convert_pwc_state_dict(sd, device="cpu")["refiner"][0]["w"].is_cpu
+    if torch.cuda.is_available():
+        assert load_pwc_npz(path)["dec2"]["upfeat"]["w"].is_cuda
+        assert convert_pwc_state_dict(sd)["refiner"][0]["w"].is_cuda
+        return
+    for load in (lambda: load_pwc_npz(path),
+                 lambda: convert_pwc_state_dict(sd),
+                 lambda: pwc_params_from_numpy({"dec2": {}})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load()

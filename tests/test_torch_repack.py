@@ -1,7 +1,10 @@
 """fldrx_torch's u-plane layout held against the JAX package on the CPU:
 the interleave (the plain version against fldrx's Pallas kernel in
-interpret mode, bit-exact), and the packed synthesis's planes_out return
-against fldrx's (≤ 1e-4 max abs) and against its own plain rows (bit-exact).
+interpret mode, bit-exact), the deinterleave (against fldrx's
+extract_planes through its XLA fallback and through its Pallas kernels in
+interpret mode, bit-exact, and its refusals), and the packed synthesis's
+planes_out return against fldrx's (≤ 1e-4 max abs) and against its own
+plain rows (bit-exact).
 """
 
 import importlib
@@ -64,6 +67,70 @@ def test_interleave_matches_fldrx(shape, dtype):
 def test_interleave_refuses_bad_shapes():
     with pytest.raises(ValueError, match="interleave_planes"):
         repack.interleave_planes(torch.zeros(1, 3, 2, 6))
+
+
+def _fldrx_extract_planes(img, interpret: bool) -> np.ndarray:
+    """fldrx's extract_planes on [H, W, C], as float32 numpy; with
+    `interpret` its module is reloaded under FLDRX_PALLAS_INTERPRET=1 so
+    that its Pallas kernels run in interpret mode."""
+    if not interpret:
+        return np.asarray(jrepack.extract_planes(img).astype(jnp.float32))
+    os.environ["FLDRX_PALLAS_INTERPRET"] = "1"
+    try:
+        return np.asarray(importlib.reload(jrepack).extract_planes(img)
+                          .astype(jnp.float32))
+    finally:
+        del os.environ["FLDRX_PALLAS_INTERPRET"]
+        importlib.reload(jrepack)
+
+
+@pytest.mark.parametrize("case,hwc,dtype", [
+    # fldrx's XLA fallback (strided row slices)
+    ("xla", (128, 128, 3), "float32"),
+    ("xla", (128, 128, 3), "bfloat16"),
+    ("xla", (20, 7, 3), "float32"),
+    # interpret mode: H a multiple of 128 reaches the one-hot matmul kernel
+    # _deinterleave_kernel2; 96 rows of 1024 elements the row-DMA kernel
+    # _deinterleave_kernel
+    ("interpret", (128, 128, 3), "float32"),
+    ("interpret", (256, 128, 3), "bfloat16"),
+    ("interpret", (96, 256, 4), "float32"),
+    ("interpret", (20, 7, 3), "bfloat16"),
+    # interleave_planes(extract_planes(x)) == x
+    ("round_trip", (36, 10, 3), "float32"),
+    ("round_trip", (128, 128, 3), "bfloat16"),
+    # refusals: H not a multiple of 4, a dtype the kernel does not take
+    ("refuse_shape", (6, 8, 3), "float32"),
+    ("refuse_dtype", (8, 8, 3), "float64"),
+])
+def test_extract_planes(case, hwc, dtype):
+    """extract_planes on CPU tensors (the plain version, no launch) against
+    fldrx's extract_planes, its round trip through interleave_planes, and
+    its refusals; every comparison bit for bit."""
+    H, W, C = hwc
+    a = np.random.RandomState(H + W).randn(H, W, C).astype(np.float32)
+    rows = torch.tensor(a.reshape(1, H, W * C)).to(getattr(torch, dtype))
+    if case == "refuse_shape":
+        with pytest.raises(ValueError, match="extract_planes"):
+            repack.extract_planes(rows)
+        return
+    if case == "refuse_dtype":
+        with pytest.raises(TypeError, match="extract_planes"):
+            repack.extract_planes(rows)
+        return
+    before = dict(repack.LAUNCHES)
+    got = repack.extract_planes(rows)
+    assert repack.LAUNCHES == before
+    assert got.shape == (1, 4, H // 4, W * C) and got.dtype == rows.dtype
+    if case == "round_trip":
+        assert torch.equal(repack.interleave_planes(got), rows)
+        return
+    ref = _fldrx_extract_planes(jnp.asarray(a).astype(dtype),
+                                case == "interpret")
+    np.testing.assert_array_equal(got[0].float().numpy(), ref)
+    np.testing.assert_array_equal(
+        repack.extract_planes_plain(rows.expand(2, -1, -1))[1].float()
+        .numpy(), ref)
 
 
 def test_synthesize_packed_planes_out_matches_fldrx():
