@@ -184,13 +184,34 @@ def excess(got, ref, rel: float = 1e-4) -> float:
     return ((got - ref).abs() - rel * (1 + ref.abs())).max().item()
 
 
-def check_kernels(dev, peaks):
-    import torch
-    import torch.nn.functional as F
+def sass_atomics(lib: str, kernel: str) -> dict:
+    """For each function of a built library whose mangled name holds
+    `kernel`: its SASS reductions (RED, REDG: no value returned) and
+    atomics (ATOM, ATOMG, ATOMS: the old value returned), by cuobjdump."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    sass = subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass",
+                           lib], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            name = ln.split("Function : ")[1].strip()
+            fn = name if kernel in name else None
+            if fn:
+                counts[fn] = {"RED": 0, "ATOM": 0}
+        elif fn and "*/" in ln:
+            words = [w for w in ln.split("*/", 1)[1].split()
+                     if not w.startswith("@")]
+            op = words[0].split(".")[0] if words else ""
+            if op in ("RED", "REDG"):
+                counts[fn]["RED"] += 1
+            elif op.startswith("ATOM"):
+                counts[fn]["ATOM"] += 1
+    return counts
 
-    from fldrx_torch.ops import _build, fastwarp
-    from fldrx_torch.ops.resize import resize_2d
-    from fldrx_torch.ops.warp import sample_coords
+
+def check_kernels(peaks):
+    from fldrx_torch.ops import _build
 
     t0 = time.time()
     logs = _build.build_all()
@@ -204,103 +225,189 @@ def check_kernels(dev, peaks):
     if not hmma:
         raise AssertionError("conv3x3 was not compiled to tensor-core "
                              "instructions")
-    g = torch.Generator(device=dev).manual_seed(0)
-    f32_rate = peaks[2]
-    results = {}
-
-    # gather: an im_tot gather at 4K, with the 0.999 mask
-    H, W, C = 2304, 4096, 3
-    img = torch.rand(1, H, W, C, device=dev, generator=g) * 2 - 1
-    coarse = (torch.rand(1, 36, 64, 2, device=dev, generator=g) * 2 - 1) * 40
-    flow = resize_2d(coarse, (H, W), "bilinear")
-    sx, sy = sample_coords(flow)
-    got = fastwarp.gather(img, sx, sy, mask=True)
-    ref = fastwarp.gather_plain(img, sx, sy, mask=True)
-    torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    if not err <= 1e-5:
-        raise AssertionError(f"gather disagrees with its plain version: {err}")
-    img_nchw = img.permute(0, 3, 1, 2).contiguous()
-    grid = torch.stack([(2 * sx + 1) / W - 1, (2 * sy + 1) / H - 1], -1)
-    nbytes = 4 * (H * W * C + 2 * H * W + H * W * C)
-    flops = H * W * (7 * C + 12)
-    b, by = bound_ms(peaks, nbytes, flops, f32_rate)
-    results["gather"] = dict(
-        name="gather", route="cuda", source="fldrx_torch/csrc/warp.cu",
-        replaces="fldrx/ops/fastwarp.py:307",
-        max_abs_err=err,
-        ms=median_ms(lambda: fastwarp.gather(img, sx, sy, mask=True)),
-        plain_ms=median_ms(lambda: fastwarp.gather_plain(img, sx, sy, True)),
-        bound_ms=b, bound_by=by,
-        library_ms=median_ms(lambda: F.grid_sample(
-            img_nchw, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=False)),
-        shape=f"img 1x{H}x{W}x{C} f32, mask on")
-    del img, coarse, flow, sx, sy, got, ref, img_nchw, grid
-
-    # splat: the level-0 softmax splat (C=4) and a coarse feature splat (C=49)
-    checks = []
-    for (H, W, C) in ((2304, 4096, 4), (288, 512, 49)):
-        vals = torch.rand(1, H, W, C, device=dev, generator=g)
-        coarse = (torch.rand(1, 36, 64, 2, device=dev, generator=g) * 2 - 1) \
-            * 40 * H / 2304
-        flow = resize_2d(coarse, (H, W), "bilinear")
-        tx = torch.arange(W, device=dev, dtype=torch.float32) + flow[..., 0]
-        ty = torch.arange(H, device=dev, dtype=torch.float32)[:, None] \
-            + flow[..., 1]
-        got = fastwarp.splat(vals, tx, ty)
-        ref = fastwarp.splat_plain(vals, tx, ty)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        if not excess(got, ref) <= 0:
-            raise AssertionError(f"splat C={C} disagrees with its plain "
-                                 f"version: max abs {err}")
-        checks.append({"shape": f"1x{H}x{W}x{C}", "max_abs_err": err})
-        if C == 4:
-            nbytes = 4 * (H * W * C + 2 * H * W + H * W * C)
-            b, by = bound_ms(peaks, nbytes, H * W * (8 * C + 10), f32_rate)
-            results["splat"] = dict(
-                name="splat", route="cuda", source="fldrx_torch/csrc/warp.cu",
-                replaces="fldrx/ops/fastwarp.py:986",
-                also_replaces="fldrx/ops/fastwarp.py:776",
-                ms=median_ms(lambda: fastwarp.splat(vals, tx, ty)),
-                plain_ms=median_ms(lambda: fastwarp.splat_plain(vals, tx, ty)),
-                bound_ms=b, bound_by=by,
-                library_ms=median_ms(index_add_yardstick(vals, tx, ty)),
-                shape=f"vals 1x{H}x{W}x{C} f32")
-        del vals, coarse, flow, tx, ty, got, ref
-    results["splat"]["max_abs_err"] = max(c["max_abs_err"] for c in checks)
-    results["splat"]["checks"] = checks
-
-    torch.cuda.empty_cache()
-    for r in results.values():
-        print(f"kernel {r['name']}: err {r['max_abs_err']:.3g}, "
-              f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, library "
-              f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by "
-              f"{r['bound_by']})", flush=True)
-    return results
+    # the splat's adds must be fire-and-forget reductions (RED), not
+    # atomics that return the old value (ATOM)
+    fwd = {k: v for k, v in sass_atomics(_build.library_path("warp"),
+                                         "splat_").items()
+           if "grad" not in k}
+    print(f"splat SASS: {fwd}", flush=True)
+    if not fwd or any(v["ATOM"] or not v["RED"] for v in fwd.values()):
+        raise AssertionError(f"splat kernels without RED or with ATOM: {fwd}")
+    return warp_rows(peaks)
 
 
-def check_train_kernels(dev, peaks, results):
-    """Phase 2 at the training shapes (batch 8, 512×512 frames, 64×64
-    level-0 feature grid): gather and splat as forward kernels, and the two
-    VJP kernels gather_grad and splat_grad."""
+# The gather and splat at every shape the paths give them: (label, B, H,
+# W, C, mask for the gather, the coarse grid of the random flow, its ±px).
+# 4K: the im_tot gathers and level-0 splats at the padded 2304×4096 frame,
+# the flowback gathers and the largest feature splats at its 288×512 flow
+# grid; training: level 0 at 8×512×512 and the feature splats at 8×64×64;
+# the teacher: dec2's warp.
+GATHER_ROWS = (
+    ("4K im_tot", 1, 2304, 4096, 3, True, (36, 64), 40.0),
+    ("4K flowback", 1, 288, 512, 2, False, (36, 64), 5.0),
+    ("training", 8, 512, 512, 3, True, (8, 8), 24.0),
+    ("teacher dec2", 8, 128, 128, 32, True, (8, 8), 8.0),
+)
+SPLAT_ROWS = (
+    ("4K level 0", 1, 2304, 4096, 4, (36, 64), 40.0),
+    ("4K feature", 1, 288, 512, 49, (36, 64), 5.0),
+    ("training level 0", 8, 512, 512, 4, (8, 8), 24.0),
+    ("training feature", 8, 64, 64, 49, (8, 8), 3.0),
+)
+
+
+def smooth_targets(g, B, H, W, coarse, px):
+    """Absolute coords (x + flow_x, y + flow_y) [B, H, W] of a smooth
+    random flow: uniform ±px displacements on a coarse grid, resized
+    bilinearly."""
+    import torch
+
+    from fldrx_torch.ops.resize import resize_2d
+
+    cf = (torch.rand(B, *coarse, 2, device="cuda", generator=g) * 2 - 1) * px
+    flow = resize_2d(cf, (H, W), "bilinear")
+    xs = torch.arange(W, device="cuda", dtype=torch.float32)
+    ys = torch.arange(H, device="cuda", dtype=torch.float32)[:, None]
+    return xs + flow[..., 0], ys + flow[..., 1]
+
+
+def bare_launch(fn: str, C: int, ins, out, *dims):
+    """The C entry point `fn` alone on fixed buffers, with the route the
+    wrapper would pick; a checkout whose entry points take no route gets
+    none."""
+    import torch
+
+    from fldrx_torch.ops import _build, fastwarp
+
+    route = fastwarp._route(C, ins[0].data_ptr(), out.data_ptr()) \
+        if hasattr(fastwarp, "_route") else None
+    args = (*[t.data_ptr() for t in ins], out.data_ptr(), *dims,
+            *(() if route is None else (route,)),
+            torch.cuda.current_stream().cuda_stream)
+    f = getattr(_build.library("warp"), fn)
+    return (lambda: _build.check(f(*args), fn)), \
+        ("thread per pixel", "lanes", "vec4")[0 if route is None else route + 1]
+
+
+def gather_row(peaks, g, label, B, H, W, C, mask, coarse, px):
     import torch
     import torch.nn.functional as F
 
     from fldrx_torch.ops import fastwarp
-    from fldrx_torch.ops.resize import resize_2d
+
+    img = torch.rand(B, H, W, C, device="cuda", generator=g) * 2 - 1
+    sx, sy = smooth_targets(g, B, H, W, coarse, px)
+    got = fastwarp.gather(img, sx, sy, mask)
+    ref = fastwarp.gather_plain(img, sx, sy, mask)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    if not err <= 1e-5:
+        raise AssertionError(f"gather {label} disagrees with its plain "
+                             f"version: {err}")
+    img_nchw = img.permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([(2 * sx + 1) / W - 1, (2 * sy + 1) / H - 1], -1)
+    launch, route = bare_launch("fldrx_gather_f32", C, (img, sx, sy),
+                                torch.empty_like(got), B, H, W, C, H, W,
+                                int(mask))
+    n = B * H * W
+    b, by = bound_ms(peaks, 4 * (2 * n * C + 2 * n), n * (7 * C + 12),
+                     peaks[2])
+    return dict(
+        shape=f"{label}: img {B}x{H}x{W}x{C} f32, mask {'on' if mask else 'off'}",
+        kernel_route=route, max_abs_err=err,
+        ms=median_ms(lambda: fastwarp.gather(img, sx, sy, mask)),
+        kernel_ms=median_ms(launch),
+        plain_ms=median_ms(lambda: fastwarp.gather_plain(img, sx, sy, mask)),
+        bound_ms=b, bound_by=by,
+        library_ms=median_ms(lambda: F.grid_sample(
+            img_nchw, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=False)))
+
+
+def splat_row(peaks, g, label, B, H, W, C, coarse, px):
+    import torch
+
+    from fldrx_torch.ops import fastwarp
+
+    vals = torch.rand(B, H, W, C, device="cuda", generator=g)
+    tx, ty = smooth_targets(g, B, H, W, coarse, px)
+    got = fastwarp.splat(vals, tx, ty)
+    ref = fastwarp.splat_plain(vals, tx, ty)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    if not excess(got, ref) <= 0:
+        raise AssertionError(f"splat {label} disagrees with its plain "
+                             f"version: max abs {err}")
+    # the bare launch adds into one zeroed canvas again and again, as the
+    # index_add_ yardstick does
+    launch, route = bare_launch("fldrx_splat_f32", C, (vals, tx, ty),
+                                torch.zeros_like(vals), B, H, W, C)
+    n = B * H * W
+    b, by = bound_ms(peaks, 4 * (2 * n * C + 2 * n), n * (8 * C + 10),
+                     peaks[2])
+    return dict(
+        shape=f"{label}: vals {B}x{H}x{W}x{C} f32", kernel_route=route,
+        max_abs_err=err, ms=median_ms(lambda: fastwarp.splat(vals, tx, ty)),
+        kernel_ms=median_ms(launch),
+        plain_ms=median_ms(lambda: fastwarp.splat_plain(vals, tx, ty)),
+        bound_ms=b, bound_by=by,
+        library_ms=median_ms(index_add_yardstick(vals, tx, ty)))
+
+
+def warp_rows(peaks):
+    """Phase 2 for the gather and the splat at GATHER_ROWS and SPLAT_ROWS:
+    each against its plain version (the gather within 1e-5, expected 0;
+    the splat within 1e-4·(1+|ref|)), timed through the wrapper, as the
+    bare launch, as the plain version and as the library call."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    gathers = [gather_row(peaks, g, *r) for r in GATHER_ROWS]
+    torch.cuda.empty_cache()
+    splats = [splat_row(peaks, g, *r) for r in SPLAT_ROWS]
+    torch.cuda.empty_cache()
+    for name, rows in (("gather", gathers), ("splat", splats)):
+        for r in rows:
+            print(f"kernel {name}: err {r['max_abs_err']:.3g}, {r['ms']:.4f} "
+                  f"ms (bare {r['kernel_ms']:.4f}, {r['kernel_route']}; "
+                  f"plain {r['plain_ms']:.3f}, library "
+                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}) at {r['shape']}", flush=True)
+    # the top-level numbers are the first row's, but max_abs_err is the
+    # largest of all rows
+    return {
+        "gather": dict(
+            name="gather", route="cuda", source="fldrx_torch/csrc/warp.cu",
+            replaces="fldrx/ops/fastwarp.py:307",
+            tolerance="1e-5 max abs (expected 0)",
+            library_call="F.grid_sample, no mask",
+            **dict(gathers[0], max_abs_err=max(r["max_abs_err"]
+                                               for r in gathers)),
+            shapes=gathers[1:]),
+        "splat": dict(
+            name="splat", route="cuda", source="fldrx_torch/csrc/warp.cu",
+            replaces="fldrx/ops/fastwarp.py:986",
+            also_replaces="fldrx/ops/fastwarp.py:776",
+            tolerance="1e-4*(1+|ref|)",
+            library_call="index_add_ of the four corners' updates into a "
+                         "zeroed canvas",
+            **dict(splats[0], max_abs_err=max(r["max_abs_err"]
+                                              for r in splats)),
+            shapes=splats[1:]),
+    }
+
+
+def check_train_kernels(dev, peaks, results):
+    """Phase 2 for the two VJP kernels at the training shapes (batch 8,
+    512×512 frames, 64×64 level-0 feature grid): gather_grad and
+    splat_grad."""
+    import torch
+
+    from fldrx_torch.ops import fastwarp
 
     g = torch.Generator(device=dev).manual_seed(1)
     f32_rate = peaks[2]
     B = 8
-
-    def coords(H, W, px):
-        coarse = (torch.rand(B, 8, 8, 2, device=dev, generator=g) * 2 - 1) * px
-        flow = resize_2d(coarse, (H, W), "bilinear")
-        xs = torch.arange(W, device=dev, dtype=torch.float32)
-        ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
-        return xs + flow[..., 0], ys + flow[..., 1]
 
     def row(fn, plain, library, nbytes, flops, **kw):
         b, by = bound_ms(peaks, nbytes, flops, f32_rate)
@@ -309,30 +416,16 @@ def check_train_kernels(dev, peaks, results):
                     library_ms=None if library is None else median_ms(library),
                     **kw)
 
-    # gather and its VJP: the bwarps of the frames at level 0, mask on
+    # the gather's VJP: the bwarps of the frames at level 0, mask on
     H = W = 512
     C = 3
     img = torch.rand(B, H, W, C, device=dev, generator=g) * 2 - 1
     cot = torch.randn(B, H, W, C, device=dev, generator=g)
-    sx, sy = coords(H, W, 24.0)
-    got = fastwarp.gather(img, sx, sy, True)
-    ref = fastwarp.gather_plain(img, sx, sy, True)
-    torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    if not err <= 1e-5:
-        raise AssertionError(f"gather (train shape) disagrees: {err}")
+    sx, sy = smooth_targets(g, B, H, W, (8, 8), 24.0)
     img_nchw = img.permute(0, 3, 1, 2).contiguous()
     cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
     grid = torch.stack([(2 * sx + 1) / W - 1, (2 * sy + 1) / H - 1], -1)
     px = B * H * W
-    results["gather"]["train_shape"] = row(
-        lambda: fastwarp.gather(img, sx, sy, True),
-        lambda: fastwarp.gather_plain(img, sx, sy, True),
-        lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
-                              padding_mode="zeros", align_corners=False),
-        4 * (2 * px * C + 2 * px), px * (7 * C + 12),
-        shape=f"img {B}x{H}x{W}x{C} f32, mask on", max_abs_err=err)
-
     got = fastwarp.gather_grad(img, sx, sy, cot, True)
     ref = fastwarp.gather_grad_plain(img, sx, sy, cot, True)
     torch.cuda.synchronize()
@@ -353,26 +446,14 @@ def check_train_kernels(dev, peaks, results):
               shape=f"img {B}x{H}x{W}x{C} f32, mask on"))
     del img, cot, sx, sy, got, ref, img_nchw, cot_nchw, grid
 
-    # splat and its VJP: the level-0 softmax splats (C=4) and the coarse
+    # the splat's VJP: the level-0 softmax splats (C=4) and the coarse
     # feature splats (C=49 at the 64×64 level-0 feature grid)
-    splat_rows, grad_rows = [], []
+    grad_rows = []
     for (H, W, C) in ((512, 512, 4), (64, 64, 49)):
         px = B * H * W
         vals = torch.rand(B, H, W, C, device=dev, generator=g)
         cot = torch.randn(B, H, W, C, device=dev, generator=g)
-        tx, ty = coords(H, W, 24.0 * H / 512)
-        got = fastwarp.splat(vals, tx, ty)
-        ref = fastwarp.splat_plain(vals, tx, ty)
-        torch.cuda.synchronize()
-        if not excess(got, ref) <= 0:
-            raise AssertionError(f"splat {B}x{H}x{W}x{C} disagrees")
-        splat_rows.append(row(
-            lambda: fastwarp.splat(vals, tx, ty),
-            lambda: fastwarp.splat_plain(vals, tx, ty),
-            index_add_yardstick(vals, tx, ty),
-            4 * (2 * px * C + 2 * px), px * (8 * C + 10),
-            shape=f"vals {B}x{H}x{W}x{C} f32",
-            max_abs_err=(got - ref).abs().max().item()))
+        tx, ty = smooth_targets(g, B, H, W, (8, 8), 24.0 * H / 512)
         got = fastwarp.splat_grad(vals, tx, ty, cot)
         ref = fastwarp.splat_grad_plain(vals, tx, ty, cot)
         torch.cuda.synchronize()
@@ -387,7 +468,6 @@ def check_train_kernels(dev, peaks, results):
             None, 4 * (3 * px * C + 4 * px), px * (23 * C + 12),
             shape=f"vals {B}x{H}x{W}x{C} f32", max_abs_err=max(errs)))
         del vals, cot, tx, ty, got, ref
-    results["splat"]["train_shapes"] = splat_rows
     results["splat_grad"] = dict(
         name="splat_grad", route="cuda", source="fldrx_torch/csrc/warp.cu",
         replaces="fldrx/ops/fastwarp.py:1529",
@@ -591,13 +671,11 @@ def check_teacher_kernels(dev, peaks, results):
     """Phase 2 at the teacher's shapes on the training recipe's batch (8
     pairs of 512×512): the correlation at its two largest cost volumes,
     dec2 (128×128, C=32) and dec3 (64×64, C=64), where no single PyTorch
-    call computes the 81-channel volume, so there is no library yardstick;
-    and the gather of dec2's warp (8×128×128×32, mask on)."""
+    call computes the 81-channel volume, so there is no library yardstick
+    (the gather of dec2's warp is a row of warp_rows)."""
     import torch
-    import torch.nn.functional as F
 
-    from fldrx_torch.ops import correlation, fastwarp
-    from fldrx_torch.ops.resize import resize_2d
+    from fldrx_torch.ops import correlation
 
     g = torch.Generator(device=dev).manual_seed(2)
     rows = []
@@ -630,41 +708,7 @@ def check_teacher_kernels(dev, peaks, results):
     results["correlation"]["max_abs_err"] = max(r["max_abs_err"]
                                                  for r in rows)
     results["correlation"]["checks"] = rows[1:]
-
-    # the gather of the teacher's dec2 warp: features at 128×128 sampled
-    # along a smooth flow of ±8 px
-    B, H, W, C = 8, 128, 128, 32
-    feat = torch.randn(B, H, W, C, device=dev, generator=g)
-    coarse = (torch.rand(B, 2, 8, 8, device=dev, generator=g) * 2 - 1) * 8
-    flow = F.interpolate(coarse, size=(H, W), mode="bilinear",
-                         align_corners=False)
-    sx = torch.arange(W, device=dev, dtype=torch.float32) + flow[:, 0]
-    sy = torch.arange(H, device=dev, dtype=torch.float32)[:, None] + flow[:, 1]
-    got = fastwarp.gather(feat, sx, sy, True)
-    ref = fastwarp.gather_plain(feat, sx, sy, True)
-    torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    if not err <= 1e-5:
-        raise AssertionError(f"gather (teacher shape) disagrees: {err}")
-    feat_nchw = feat.permute(0, 3, 1, 2).contiguous()
-    grid = torch.stack([(2 * sx + 1) / W - 1, (2 * sy + 1) / H - 1], -1)
-    px = B * H * W
-    b, by = bound_ms(peaks, 4 * (2 * px * C + 2 * px), px * (7 * C + 12),
-                     peaks[2])
-    r = results["gather"]["teacher_shape"] = dict(
-        ms=median_ms(lambda: fastwarp.gather(feat, sx, sy, True)),
-        plain_ms=median_ms(lambda: fastwarp.gather_plain(feat, sx, sy, True)),
-        bound_ms=b, bound_by=by,
-        library_ms=median_ms(lambda: F.grid_sample(
-            feat_nchw, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=False)),
-        shape=f"img {B}x{H}x{W}x{C} f32, mask on", max_abs_err=err)
-    del feat, coarse, flow, sx, sy, got, ref, feat_nchw, grid
     torch.cuda.empty_cache()
-    print(f"kernel gather: err {err:.3g}, {r['ms']:.4f} ms (plain "
-          f"{r['plain_ms']:.3f}, library {r['library_ms']:.4f}, bound "
-          f"{r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}",
-          flush=True)
     for r in rows:
         print(f"kernel correlation: err {r['max_abs_err']:.3g}, "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library: none, "
@@ -703,14 +747,21 @@ def require_launched(seen, kernels, where):
                              f"({seen})")
 
 
-CONV_PER_PAIR = 35      # 5 packed convs × 7 t values of a ×8 pair
+# launches per 4K ×8 pair: gather 30 (2 flowback and 2 im_tot gathers per
+# t, and the 2 half-resolution z gathers), splat 24 (2 level-0 splats per t,
+# and 2 feature splats at each of 5 levels), conv3x3 35 (5 packed convs per
+# t); per training step: gather 24 and splat 16
+PER_PAIR = {"gather": 30, "splat": 24, "conv3x3": 35}
+PER_STEP = {"gather": 24, "splat": 16}
 
 
-def require_conv_per_pair(seen, pairs: int, where: str):
-    if seen["conv3x3"] != CONV_PER_PAIR * pairs:
-        raise AssertionError(f"{where}: conv3x3 launched {seen['conv3x3']} "
-                             f"times in {pairs} pair(s), expected "
-                             f"{CONV_PER_PAIR} per pair")
+def require_counts(seen, per, n: int, where: str):
+    """Each kernel of `per` launched exactly per[k] times in each of n
+    pairs (or steps)."""
+    bad = {k: seen[k] for k in per if seen[k] != per[k] * n}
+    if bad:
+        raise AssertionError(f"{where}: launches {bad} in {n} run(s), "
+                             f"expected {per} per run")
 
 
 def reset_launches():
@@ -806,7 +857,7 @@ def main_path_4k(card: str):
         raise AssertionError(f"outputs out of range: [{lo}, {hi}], "
                              f"{nonfinite} non-finite")
     require_launched(seen, INFER_KERNELS, "inference at 4K")
-    require_conv_per_pair(seen, iters, "inference at 4K")
+    require_counts(seen, PER_PAIR, iters, "inference at 4K")
     return seen
 
 
@@ -945,6 +996,7 @@ def train_full(card: str, dev: str = "cuda"):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
     require_launched(seen, TRAIN_KERNELS, "training at full size")
+    require_counts(seen, PER_STEP, iters, "training at full size")
     if not exact:
         raise AssertionError("checkpoint round trip did not restore the "
                              "parameters and optimiser state exactly")
@@ -1106,7 +1158,7 @@ def golden_clip(card: str):
         "c_max_psnr_diff_db": d_psnr, "c_max_ssim_diff": d_ssim,
         "c_s": time.time() - t0, "card": card}), flush=True)
     require_launched(seen, INFER_KERNELS, "golden clip 4K")
-    require_conv_per_pair(seen, 1, "golden clip 4K")
+    require_counts(seen, PER_PAIR, 1, "golden clip 4K")
     seen_eval = golden_evaluate(interp, frames, ts, gts, ps_b, card)
     if not abs(mean_a - GOLDEN_PIN_512) < 0.05:
         raise AssertionError(f"golden clip 512x768: {mean_a} dB, pinned "
@@ -1161,7 +1213,7 @@ def golden_evaluate(interp, frames, ts, gts, ps_float, card: str):
         "fps_device_metrics": on.frames_per_sec, "launches": seen,
         "card": card}), flush=True)
     require_launched(seen, EVAL_KERNELS, "evaluate, metrics on the card")
-    require_conv_per_pair(seen, 1, "evaluate, metrics on the card")
+    require_counts(seen, PER_PAIR, 1, "evaluate, metrics on the card")
     if not on.n_samples == off.n_samples == len(ts):
         raise AssertionError(f"evaluate scored {on.n_samples}, "
                              f"{off.n_samples} of {len(ts)} frames")
@@ -1201,7 +1253,7 @@ def main() -> int:
     print(f"card: {card} ({variant} peaks); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
-    results = phase("2 kernels", check_kernels, "cuda", peaks)
+    results = phase("2 kernels", check_kernels, peaks)
     phase("2 training-shape kernels", check_train_kernels, "cuda", peaks,
           results)
     phase("2 conv3x3", check_conv3x3, "cuda", peaks, results)

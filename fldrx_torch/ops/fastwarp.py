@@ -24,6 +24,13 @@ that reason. splat_grad has no atomics and is deterministic.
 
 `LAUNCHES` counts kernel launches (not plain-version calls), so a run can
 show that its path went through the kernels.
+
+The gather and splat kernels take one of two routes (csrc/warp.cu), which
+`_route` picks from C and the data pointers' alignment: VEC4, one thread
+per 4-channel group with 16-byte loads, stores and reductions, where C is
+a multiple of 4 and every pointer is 16-byte aligned; else LANES, one
+thread per channel. A contiguous slice such as `x[1:]` can start off a
+16-byte boundary, so the pointers are checked on every call.
 """
 
 from __future__ import annotations
@@ -43,6 +50,11 @@ __all__ = ["gather", "gather_plain", "splat", "splat_plain", "gather_grad",
            "LAUNCHES"]
 
 LAUNCHES = {"gather": 0, "splat": 0, "gather_grad": 0, "splat_grad": 0}
+
+# the `route` argument of fldrx_gather_f32 and fldrx_splat_f32
+LANES, VEC4 = 0, 1
+# the kernels index within one frame in 32 bits
+MAX_FRAME_ELEMS = 2 ** 31 - 1
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -73,6 +85,18 @@ def _f32(t: torch.Tensor, name: str) -> torch.Tensor:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _route(C: int, *ptrs: int) -> int:
+    """VEC4 when C is a multiple of 4 and every data pointer is 16-byte
+    aligned, else LANES."""
+    return VEC4 if C % 4 == 0 and all(p % 16 == 0 for p in ptrs) else LANES
+
+
+def _check_frame(what: str, elems: int) -> None:
+    if elems > MAX_FRAME_ELEMS:
+        raise ValueError(f"{what}: {elems} elements in one frame; the kernel "
+                         f"takes at most {MAX_FRAME_ELEMS}")
 
 
 def _check_gather_shapes(what, img, sx, sy):
@@ -114,11 +138,12 @@ def gather(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     img, sx, sy = _f32(img, "img"), _f32(sx, "sx"), _f32(sy, "sy")
     B, H, W, C = img.shape
     Ho, Wo = sx.shape[1], sx.shape[2]
+    _check_frame("gather", Ho * Wo * C)
     out = torch.empty((B, Ho, Wo, C), dtype=torch.float32, device=img.device)
-    lib = _build.library("warp")
-    err = lib.fldrx_gather_f32(
-        img.data_ptr(), sx.data_ptr(), sy.data_ptr(), out.data_ptr(),
-        B, H, W, C, Ho, Wo, int(bool(mask)), _stream(img))
+    src, dst = img.data_ptr(), out.data_ptr()
+    err = _build.library("warp").fldrx_gather_f32(
+        src, sx.data_ptr(), sy.data_ptr(), dst, B, H, W, C, Ho, Wo,
+        int(bool(mask)), _route(C, src, dst), _stream(img))
     LAUNCHES["gather"] += 1
     _build.check(err, "gather")
     return out
@@ -141,11 +166,12 @@ def splat(vals: torch.Tensor, tx: torch.Tensor,
     refuse_grad("splat", "splat_sum_diff or softsplat_diff", vals, tx, ty)
     vals, tx, ty = _f32(vals, "vals"), _f32(tx, "tx"), _f32(ty, "ty")
     B, H, W, C = vals.shape
+    _check_frame("splat", H * W * C)
     out = torch.zeros_like(vals)
-    lib = _build.library("warp")
-    err = lib.fldrx_splat_f32(
-        vals.data_ptr(), tx.data_ptr(), ty.data_ptr(), out.data_ptr(),
-        B, H, W, C, _stream(vals))
+    src, dst = vals.data_ptr(), out.data_ptr()
+    err = _build.library("warp").fldrx_splat_f32(
+        src, tx.data_ptr(), ty.data_ptr(), dst, B, H, W, C,
+        _route(C, src, dst), _stream(vals))
     LAUNCHES["splat"] += 1
     _build.check(err, "splat")
     return out

@@ -17,7 +17,8 @@ and the deinterleave are permutations, held bit for bit; conv3x3 rounds its
 output to bf16 (one ulp is 1/128 relative), held at 2e-2 max abs and 1e-2
 relative L2 against float32 F.conv2d.
 
-The layout of conv3x3's packed weights is held on the CPU as well.
+The layout of conv3x3's packed weights, and the route and frame limit the
+gather and splat wrappers pick, are held on the CPU as well.
 """
 
 import ctypes
@@ -36,10 +37,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 @pytest.mark.parametrize("name,expected", [
     ("warp", {
-        # img, sx, sy, out, B, H, W, C, Ho, Wo, mask, stream
-        "fldrx_gather_f32": [_P] * 4 + [_I] * 7 + [_P],
-        # vals, tx, ty, out, B, H, W, C, stream
-        "fldrx_splat_f32": [_P] * 4 + [_I] * 4 + [_P],
+        # img, sx, sy, out, B, H, W, C, Ho, Wo, mask, route, stream
+        "fldrx_gather_f32": [_P] * 4 + [_I] * 8 + [_P],
+        # vals, tx, ty, out, B, H, W, C, route, stream
+        "fldrx_splat_f32": [_P] * 4 + [_I] * 5 + [_P],
         # vals, tx, ty, g, dvals, dtx, dty, B, H, W, C, stream
         "fldrx_splat_grad_f32": [_P] * 7 + [_I] * 4 + [_P],
         # img, sx, sy, g, dimg, dsx, dsy, B, H, W, C, Ho, Wo, mask, stream
@@ -75,31 +76,112 @@ def card():
     return torch.device("cuda")
 
 
+def _at_offset(shape, offset: int, g, dev="cpu"):
+    """A contiguous float32 tensor of `shape` (uniform in [0, 1)) starting
+    `offset` floats into its storage: offset 1 puts its data pointer off
+    every 16-byte boundary."""
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + offset, device=dev)
+    flat[offset:] = torch.rand(n, generator=g).to(dev)
+    return flat[offset:].view(shape)
+
+
+@pytest.mark.parametrize("shape,offset,route", [
+    ((1, 8, 8, 4), 0, fastwarp.VEC4),
+    ((2, 5, 7, 32), 0, fastwarp.VEC4),
+    ((1, 3, 5, 128), 4, fastwarp.VEC4),       # 16 bytes in: still aligned
+    ((1, 8, 8, 4), 1, fastwarp.LANES),        # 4 bytes in
+    ((1, 8, 8, 64), 2, fastwarp.LANES),       # 8 bytes in
+    ((1, 8, 8, 3), 0, fastwarp.LANES),
+    ((1, 8, 8, 2), 0, fastwarp.LANES),
+    ((1, 8, 8, 49), 0, fastwarp.LANES),
+    ((1, 8, 8, 1), 0, fastwarp.LANES),
+])
+def test_warp_route(shape, offset, route):
+    """The gather and splat wrappers' route: VEC4 only where C is a
+    multiple of 4 and both the input's and the output's data pointers are
+    16-byte aligned (a contiguous view can start anywhere in its
+    storage)."""
+    x = _at_offset(shape, offset, torch.Generator().manual_seed(0))
+    out = torch.empty(shape)
+    assert x.is_contiguous()
+    assert fastwarp._route(shape[-1], x.data_ptr(), out.data_ptr()) == route
+    assert fastwarp._route(shape[-1], out.data_ptr(), x.data_ptr()) == route
+    # a batch slice x[1:] of C = 4 rows stays 16-byte aligned, of C = 3
+    # rows with an odd pixel count does not
+    for C, want in ((4, fastwarp.VEC4), (3, fastwarp.LANES)):
+        sl = torch.zeros(3, 5, 7, C)[1:]
+        assert fastwarp._route(C, sl.data_ptr(), out.data_ptr()) == want
+
+
+def test_warp_frame_limit():
+    """The kernels index one frame in 32 bits: the wrappers refuse a frame
+    of 2^31 elements or more before any launch."""
+    fastwarp._check_frame("gather", fastwarp.MAX_FRAME_ELEMS)
+    with pytest.raises(ValueError, match="at most 2147483647"):
+        fastwarp._check_frame("splat", fastwarp.MAX_FRAME_ELEMS + 1)
+
+
 @pytest.mark.cuda
-def test_gather_kernel_matches_plain(card):
-    g = torch.Generator(device="cpu").manual_seed(0)
-    img = torch.rand(1, 96, 160, 3, generator=g).to(card)
-    flow = (torch.randn(1, 96, 160, 2, generator=g) * 20).to(card)
-    sx, sy = twarp.sample_coords(flow)
-    for mask in (False, True):
+@pytest.mark.parametrize("mask", [False, True])
+@pytest.mark.parametrize("C", [2, 3, 4, 32, 49, 128])
+def test_gather_kernel_matches_plain(card, C, mask):
+    """Both routes, bit for bit: a ragged 37×45 frame (W no multiple of 4
+    or 32) sampled on a 29×51 grid, with taps in and out of frame; from an
+    aligned tensor, from a batch slice img[1:] and from a contiguous view
+    that starts one float into its storage (off every 16-byte boundary, so
+    LANES where C % 4 == 0 would allow VEC4)."""
+    g = torch.Generator(device="cpu").manual_seed(C)
+    B, H, W, Ho, Wo = 2, 37, 45, 29, 51
+    full = _at_offset((B + 1, H, W, C), 0, g, card)
+    sx = (torch.rand(B, Ho, Wo, generator=g) * (W + 6) - 3).to(card)
+    sy = (torch.rand(B, Ho, Wo, generator=g) * (H + 6) - 3).to(card)
+    cases = {"aligned": full[:B], "batch slice": full[1:],
+             "one float in": _at_offset((B, H, W, C), 1, g, card)}
+    for name, img in cases.items():
+        before = fastwarp.LAUNCHES["gather"]
         got = fastwarp.gather(img, sx, sy, mask=mask)
         ref = fastwarp.gather_plain(img, sx, sy, mask=mask)
         torch.cuda.synchronize()
-        assert (got - ref).abs().max().item() <= 1e-5
+        assert fastwarp.LAUNCHES["gather"] == before + 1
+        assert got.shape == ref.shape == (B, Ho, Wo, C)
+        assert (got - ref).abs().max().item() <= 1e-5, name
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [4, 49])
-def test_splat_kernel_matches_plain(card, C):
-    g = torch.Generator(device="cpu").manual_seed(1)
-    vals = torch.rand(1, 64, 96, C, generator=g).to(card)
-    tx = (torch.arange(96.0) + torch.randn(1, 64, 96, generator=g) * 5).to(card)
-    ty = (torch.arange(64.0)[:, None]
-          + torch.randn(1, 64, 96, generator=g) * 5).to(card)
+@pytest.mark.parametrize("flow", ["smooth", "wide", "out of frame",
+                                  "one float in"])
+@pytest.mark.parametrize("C", [1, 3, 4, 49, 64])
+def test_splat_kernel_matches_plain(card, C, flow):
+    """Both routes at a ragged 37×45 frame, batch 2: a smooth flow of ±5
+    px; a wide random flow (σ 50 px, most targets far apart and many out of
+    frame); every target out of frame (the result is all zero); and vals
+    from a view one float into its storage (LANES where C % 4 == 0 would
+    allow VEC4)."""
+    g = torch.Generator(device="cpu").manual_seed(C)
+    B, H, W = 2, 37, 45
+    vals = _at_offset((B, H, W, C), 1 if flow == "one float in" else 0, g,
+                      card)
+    xs = torch.arange(W, dtype=torch.float32)
+    ys = torch.arange(H, dtype=torch.float32)[:, None]
+    if flow == "wide":
+        fx, fy = (torch.randn(B, H, W, generator=g) * 50 for _ in range(2))
+    elif flow == "out of frame":
+        fx, fy = torch.full((B, H, W), W + 1.5), torch.zeros(B, H, W)
+    else:
+        fx, fy = (torch.nn.functional.interpolate(
+            torch.randn(B, 1, 4, 6, generator=g) * 5, size=(H, W),
+            mode="bilinear")[:, 0] for _ in range(2))
+    tx, ty = (xs + fx).to(card), (ys + fy).to(card)
+    before = fastwarp.LAUNCHES["splat"]
     got = fastwarp.splat(vals, tx, ty)
     ref = fastwarp.splat_plain(vals, tx, ty)
     torch.cuda.synchronize()
-    assert ((got - ref).abs() <= 1e-4 * (1 + ref.abs())).all()
+    assert fastwarp.LAUNCHES["splat"] == before + 1
+    assert got.shape == ref.shape == (B, H, W, C)
+    if flow == "out of frame":
+        assert not got.any() and not ref.any()
+    _close(got, ref)
 
 
 @pytest.mark.parametrize("K,Cin", [(32, 16), (40, 48), (96, 24), (130, 13)])
