@@ -14,24 +14,29 @@ script exits non-zero:
   1. card check: a CUDA device must be present; prints its name and power
      limit (nvidia-smi).
   2. kernels: the build (each kernel's registers and spills; conv3x3's
-     SASS must hold tensor-core instructions, counted with cuobjdump),
-     then gather (2304×4096×3, smooth random flow of ±40 px), splat (C=4
-     at 2304×4096, C=49 at 288×512), and at the training shapes gather
-     (8×512×512×3, mask on), splat (C=4 at 8×512×512, C=49 at 8×64×64),
-     gather_grad (8×512×512×3, mask on) and splat_grad (C=4 at 8×512×512,
-     C=49 at 8×64×64); conv3x3 at the five packed shapes of the 4K path
-     (enc1 576×1024 416→64, enc2 64→32, enc3 288×512 128→64, dec2 192→64,
-     dec3 256→96) on random dense weights and at enc1 on the checkpoint's
-     repacked weights, against float32 F.conv2d (≤ 2e-2 max abs, ≤ 1e-2
-     relative L2), timed through the wrapper and as the bare launch; the
-     teacher's correlation (dec2 8×128×128 C=32, dec3 8×64×64 C=64) and
-     gather (dec2's warp, 8×128×128×32); the interleave of the synthesis's
+     SASS must hold tensor-core instructions and the splat's adds must be
+     RED reductions, no ATOM, both counted with cuobjdump); then the
+     gather and the splat at every shape the paths give them (GATHER_ROWS,
+     SPLAT_ROWS: 4K im_tot gather 2304×4096×3 with mask, flowback gather
+     288×512×2, training gather 8×512×512×3, the teacher's dec2 warp
+     8×128×128×32; splat C=4 at 2304×4096 and 8×512×512, C=49 at 288×512
+     and 8×64×64; smooth random flows), each timed through the wrapper and
+     as the bare launch of its C entry point; gather_grad (8×512×512×3,
+     mask on) and splat_grad (C=4 at 8×512×512, C=49 at 8×64×64); conv3x3
+     at the five packed shapes of the 4K path (enc1 576×1024 416→64, enc2
+     64→32, enc3 288×512 128→64, dec2 192→64, dec3 256→96) on random dense
+     weights and at enc1 on the checkpoint's repacked weights, against
+     float32 F.conv2d (≤ 2e-2 max abs, ≤ 1e-2 relative L2), timed through
+     the wrapper and as the bare launch; the teacher's correlation (dec2
+     8×128×128 C=32, dec3 8×64×64 C=64); the interleave of the synthesis's
      u-planes (1×4×576×12288 f32, the padded 4K frame) and the
      deinterleave, which no path launches (1×2304×12288 f32, bit for bit
      and through the round trip). Each against its plain version on the
-     same inputs, with the median time of 20 launches beside the plain
-     version's, the PyTorch library call's (cuDNN bf16 channels-last for
-     conv3x3; none for the correlation) and the bound from bytes and
+     same inputs (the gather within 1e-5, the splat within
+     1e-4·(1+|ref|)), with the median time of 20 launches beside the plain
+     version's, the PyTorch library call's (F.grid_sample for the gather,
+     index_add_ for the splat, cuDNN bf16 channels-last for conv3x3; none
+     for the correlation and splat_grad) and the bound from bytes and
      operations.
   3. inference held: prepare_model() with the real checkpoint on cuda and
      on cpu, interpolate_multi_np at 768×1280 with three t values; the two
@@ -40,8 +45,8 @@ script exits non-zero:
      ×8 (7 t values, chunks of 4, returned as u-planes as in bench.py), one
      warm-up pair then 3 timed pairs; outputs finite and in [-1.1, 1.1];
      frames/s and peak memory. Kernel launch counts are zeroed just before
-     the timed pairs and read after; conv3x3 must launch exactly 35 times
-     per pair (5 packed convs × 7 t).
+     the timed pairs and read after; each pair must launch exactly gather
+     30, splat 24 and conv3x3 35 times (PER_PAIR).
   5a. train step held: the real checkpoint on cuda and on cpu, one
      make_train_step each on the same batch (B=2, 256×256, S_trn=3, bench
      texture with a per-sample pan, t from a seeded torch.Generator);
@@ -53,7 +58,8 @@ script exits non-zero:
      the first batch as a fresh run does; one warm-up step then 5 timed
      steps fenced by torch.cuda.synchronize(); losses finite; ms per step,
      samples/s, peak memory and kernel launches per step (counts zeroed
-     just before the timed steps); then a SaveManager save into a
+     just before the timed steps; exactly gather 24 and splat 16 per
+     step, PER_STEP); then a SaveManager save into a
      temporary directory and a load that must restore the parameters and
      the optimiser state exactly. The card machine has no PIL and no JAX,
      so this drives the trainer's entry points (TrainState,
@@ -74,12 +80,12 @@ script exits non-zero:
      (tests/test_goldenclip.py's pin); (b) the deploy mix at 2160×4096, pan
      ×8, mean and per-t PSNR, mean within 0.15 dB of 44.139 (fldrx's reading
      of the same protocol, PARITY.md §2), with the launch counts zeroed just
-     before its inference and read after (conv3x3 35); (c) metrics_torch on
+     before its inference and read after (PER_PAIR); (c) metrics_torch on
      two of the 4K predictions against the host's psnr and ssim_bgr: ≤ 1e-4
      dB and ≤ 1e-5 SSIM; (d) evaluate() on the same 4K clip as an 8-bit test
      set (GoldenTestSet), the deploy mix, once with the metrics on the card
      (plain rows through the interleave kernel; launch counts zeroed just
-     before and read after, conv3x3 35) and once on the host (u-planes
+     before and read after, PER_PAIR) and once on the host (u-planes
      unpacked on the worker threads): the two agree to 1e-4 dB and 1e-5 SSIM,
      and the mean lies within 0.15 dB of 44.139 moved by the 8-bit rounding
      of the targets (each t's float MSE plus the targets' rounding MSE).
@@ -169,14 +175,19 @@ def index_add_yardstick(vals, tx, ty):
     return lambda: canvas.index_add_(0, idx, upd)
 
 
-def tensor_core_instructions(lib: str) -> int:
-    """The number of HMMA (mma.sync) and HGMMA (wgmma) instructions in the
-    SASS of a built library, by the toolkit's cuobjdump."""
+def sass(lib: str) -> str:
+    """The SASS of a built library, by the toolkit's cuobjdump."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    sass = subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass",
+    return subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass",
                            lib], capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    return sum(("HMMA" in ln or "HGMMA" in ln) for ln in sass.splitlines())
+
+
+def tensor_core_instructions(lib: str) -> int:
+    """The number of HMMA (mma.sync) and HGMMA (wgmma) instructions in the
+    SASS of a built library."""
+    return sum(("HMMA" in ln or "HGMMA" in ln)
+               for ln in sass(lib).splitlines())
 
 
 def excess(got, ref, rel: float = 1e-4) -> float:
@@ -186,26 +197,24 @@ def excess(got, ref, rel: float = 1e-4) -> float:
 
 def sass_atomics(lib: str, kernel: str) -> dict:
     """For each function of a built library whose mangled name holds
-    `kernel`: its SASS reductions (RED, REDG: no value returned) and
-    atomics (ATOM, ATOMG, ATOMS: the old value returned), by cuobjdump."""
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    sass = subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass",
-                           lib], capture_output=True, text=True, check=True,
-                          timeout=120).stdout
+    `kernel`: its SASS reductions (RED, REDG: no value returned), those of
+    them on four floats (F32x4), and atomics (ATOM, ATOMG, ATOMS: the old
+    value returned)."""
     counts, fn = {}, None
-    for ln in sass.splitlines():
+    for ln in sass(lib).splitlines():
         if "Function : " in ln:
             name = ln.split("Function : ")[1].strip()
             fn = name if kernel in name else None
             if fn:
-                counts[fn] = {"RED": 0, "ATOM": 0}
+                counts[fn] = {"RED": 0, "RED.F32x4": 0, "ATOM": 0}
         elif fn and "*/" in ln:
             words = [w for w in ln.split("*/", 1)[1].split()
                      if not w.startswith("@")]
-            op = words[0].split(".")[0] if words else ""
-            if op in ("RED", "REDG"):
+            op = words[0].split(".") if words else [""]
+            if op[0] in ("RED", "REDG"):
                 counts[fn]["RED"] += 1
-            elif op.startswith("ATOM"):
+                counts[fn]["RED.F32x4"] += "F32x4" in op
+            elif op[0].startswith("ATOM"):
                 counts[fn]["ATOM"] += 1
     return counts
 
@@ -226,13 +235,18 @@ def check_kernels(peaks):
         raise AssertionError("conv3x3 was not compiled to tensor-core "
                              "instructions")
     # the splat's adds must be fire-and-forget reductions (RED), not
-    # atomics that return the old value (ATOM)
+    # atomics that return the old value (ATOM), and the vector route's
+    # reductions 16-byte ones
     fwd = {k: v for k, v in sass_atomics(_build.library_path("warp"),
                                          "splat_").items()
            if "grad" not in k}
     print(f"splat SASS: {fwd}", flush=True)
-    if not fwd or any(v["ATOM"] or not v["RED"] for v in fwd.values()):
-        raise AssertionError(f"splat kernels without RED or with ATOM: {fwd}")
+    if not fwd or any(v["ATOM"] or not v["RED"]
+                      or ("vec4" in k) != (v["RED.F32x4"] == v["RED"])
+                      for k, v in fwd.items()):
+        raise AssertionError(f"splat kernels without RED, with ATOM or "
+                             f"without 16-byte RED on the vector route: "
+                             f"{fwd}")
     return warp_rows(peaks)
 
 
@@ -285,8 +299,8 @@ def bare_launch(fn: str, C: int, ins, out, *dims):
             *(() if route is None else (route,)),
             torch.cuda.current_stream().cuda_stream)
     f = getattr(_build.library("warp"), fn)
-    return (lambda: _build.check(f(*args), fn)), \
-        ("thread per pixel", "lanes", "vec4")[0 if route is None else route + 1]
+    name = "thread per pixel" if route is None else ("scalar", "vec4")[route]
+    return (lambda: _build.check(f(*args), fn)), name
 
 
 def gather_row(peaks, g, label, B, H, W, C, mask, coarse, px):
@@ -313,7 +327,8 @@ def gather_row(peaks, g, label, B, H, W, C, mask, coarse, px):
     b, by = bound_ms(peaks, 4 * (2 * n * C + 2 * n), n * (7 * C + 12),
                      peaks[2])
     return dict(
-        shape=f"{label}: img {B}x{H}x{W}x{C} f32, mask {'on' if mask else 'off'}",
+        shape=f"{label}: img {B}x{H}x{W}x{C} f32, mask "
+              f"{'on' if mask else 'off'}",
         kernel_route=route, max_abs_err=err,
         ms=median_ms(lambda: fastwarp.gather(img, sx, sy, mask)),
         kernel_ms=median_ms(launch),
@@ -338,8 +353,8 @@ def splat_row(peaks, g, label, B, H, W, C, coarse, px):
     if not excess(got, ref) <= 0:
         raise AssertionError(f"splat {label} disagrees with its plain "
                              f"version: max abs {err}")
-    # the bare launch adds into one zeroed canvas again and again, as the
-    # index_add_ yardstick does
+    # the entry point zeroes its canvas, then adds into it; the index_add_
+    # yardstick adds into a canvas zeroed once
     launch, route = bare_launch("fldrx_splat_f32", C, (vals, tx, ty),
                                 torch.zeros_like(vals), B, H, W, C)
     n = B * H * W

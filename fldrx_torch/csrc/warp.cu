@@ -17,26 +17,34 @@
 // Bound: bytes (per output pixel 2 coordinates, 4·C taps that neighbouring
 // threads share through L1/L2, C outputs; a few flops each). What costs on
 // this card is the number of sectors each warp-wide load and store touches,
-// so threads sit on channels, never one thread on a whole pixel's C:
+// and a thread that loops over a pixel's C channels strides its lanes C·4
+// bytes apart:
 //   route VEC4 (C % 4 == 0, img and out 16-byte aligned; the teacher's
 //     C = 32…128): one thread per (output pixel, 4-channel group). Each tap
 //     is one 16-byte __ldg and each output one 16-byte store; the lanes of
 //     a pixel read and write one contiguous run, and each thread reads its
 //     two coordinates once.
-//   route LANES (any other C or alignment; the 4K and training C = 3, the
-//     flowback C = 2): one thread per output element (pixel, channel), so
-//     consecutive lanes store consecutive floats and load neighbouring taps.
-//     Each lane of a pixel recomputes the pixel's weights from the same
-//     coordinate line.
+//   route SCALAR (any other C or alignment), 4-byte accesses:
+//     at C = 2 and 3 (the 4K and training im_tot gathers, C = 3; the
+//     flowback gathers on the flow grid, C = 2) one thread per output
+//     pixel computes its C values once, and the block stages them in
+//     shared memory and stores its run of kThreads·C floats with
+//     consecutive threads on consecutive floats. Chosen by measurement
+//     against one thread per output element, which recomputes the
+//     weights C times (PERF.md's kernel table);
+//     at any other C, one thread per output element (pixel, channel), so
+//     consecutive lanes store consecutive floats and load neighbouring
+//     taps, each lane recomputing its pixel's weights.
 //
 // splat replaces the TPU kernel _splat_kernel_up (fldrx/ops/fastwarp.py:986,
 // launched by _splat_fast_planes :1129), and also serves the coarse feature
 // splats that fldrx runs as an XLA scatter (fldrx/ops/splat.py:33). Each
 // source pixel adds vals·w into the four integer neighbours of its target
-// (tx, ty); corners outside the frame are dropped; the output is zeroed by
-// the caller. The same kernel computes the plain-row splat _splat_kernel
-// (fldrx/ops/fastwarp.py:776, launched by _splat_fast :936) that fldrx's
-// training path runs: the port has one splat layout, plain rows.
+// (tx, ty); corners outside the frame are dropped; the entry point zeroes
+// the output first. The same kernel computes the plain-row splat
+// _splat_kernel (fldrx/ops/fastwarp.py:776, launched by _splat_fast :936)
+// that fldrx's training path runs: the port has one splat layout, plain
+// rows.
 // Bound: bytes (vals, two coordinates, the output), with the adds resolved
 // in L2. What costs on this card is the number of reductions and the
 // sectors each touches, so threads sit on channels and each add is a
@@ -47,11 +55,14 @@
 //     group), one 16-byte load of vals and one red.global.add.v4.f32 per
 //     corner (atomicAdd on float4, sm_90), a quarter of the scalar
 //     reductions.
-//   route LANES (any other C or alignment; the feature splats, C = 49,
+//   route SCALAR (any other C or alignment; the feature splats, C = 49,
 //     whose 196-byte rows are not 16-byte aligned): one thread per source
 //     element (pixel, channel), so a warp's loads of vals and its
 //     reductions into one corner hit contiguous addresses, and a C = 49
 //     splat runs 49 threads where one ran.
+// With the vector reductions the 4K C = 4 splat runs well under index_add_
+// (PERF.md's kernel table), so it accumulates in global memory: there is
+// no shared-memory canvas.
 // The summation order of colliding adds changes from run to run, so the
 // result is not bitwise deterministic (the TPU strip kernel is); it agrees
 // with the plain index_add_ version to float rounding of a few-term sum.
@@ -93,6 +104,8 @@
 #include <stdint.h>
 
 namespace {
+
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ float clamp01(float v) {
   return fminf(fmaxf(v, 0.f), 1.f);
@@ -166,15 +179,13 @@ __device__ __forceinline__ float4 scale4(float4 v, float w) {
                      __fmul_rn(v.w, w));
 }
 
-// Route LANES of the gather: one thread per output element (pixel i,
-// channel c) of frame blockIdx.y; CT is C where a path fixes it, else 0.
-template <int CT>
+// Route SCALAR of the gather at C other than 2, 3: one thread per output
+// element (pixel i, channel c) of frame blockIdx.y.
 __global__ void gather_lanes_kernel(const float* __restrict__ img,
                                     const float* __restrict__ sx,
                                     const float* __restrict__ sy,
                                     float* __restrict__ out, int B, int H,
-                                    int W, int C_, int Ho, int Wo, int mask) {
-  const int C = CT > 0 ? CT : C_;
+                                    int W, int C, int Ho, int Wo, int mask) {
   const unsigned hw = (unsigned)Ho * Wo, n = hw * C;
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
     const float* im = img + (int64_t)b * H * W * C;
@@ -194,6 +205,49 @@ __global__ void gather_lanes_kernel(const float* __restrict__ img,
       const float v10 = t.v10 ? __ldg(im + at + row) : 0.f;
       const float v11 = t.v11 ? __ldg(im + at + row + C) : 0.f;
       o[e] = tap_sum(v00, v01, v10, v11, t, keep);
+    }
+  }
+}
+
+// Route SCALAR of the gather at C = 2, 3: one thread per output pixel, its
+// C values staged in shared memory, so that the block stores its run of
+// kThreads·C floats with consecutive threads on consecutive floats.
+template <int C>
+__global__ void gather_pixels_kernel(const float* __restrict__ img,
+                                     const float* __restrict__ sx,
+                                     const float* __restrict__ sy,
+                                     float* __restrict__ out, int B, int H,
+                                     int W, int Ho, int Wo, int mask) {
+  __shared__ float tile[kThreads * C];
+  const unsigned hw = (unsigned)Ho * Wo;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const float* im = img + (int64_t)b * H * W * C;
+    const float* bx = sx + (int64_t)b * hw;
+    const float* by = sy + (int64_t)b * hw;
+    float* o = out + (int64_t)b * hw * C;
+    for (unsigned p0 = blockIdx.x * kThreads; p0 < hw;
+         p0 += gridDim.x * kThreads) {
+      const unsigned i = p0 + threadIdx.x;
+      if (i < hw) {
+        const float px = bx[i], py = by[i];
+        const Bilinear t = bilinear(px, py, W, H);
+        const float keep = mask ? keep_of(px, py, W, H) : 1.f;
+        const float* r0 = im + ((int64_t)t.y0 * W + t.x0) * C;
+        const float* r1 = r0 + (int64_t)W * C;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float v00 = t.v00 ? __ldg(r0 + c) : 0.f;
+          const float v01 = t.v01 ? __ldg(r0 + C + c) : 0.f;
+          const float v10 = t.v10 ? __ldg(r1 + c) : 0.f;
+          const float v11 = t.v11 ? __ldg(r1 + C + c) : 0.f;
+          tile[threadIdx.x * C + c] = tap_sum(v00, v01, v10, v11, t, keep);
+        }
+      }
+      __syncthreads();
+      const unsigned n = (hw - p0 < kThreads ? hw - p0 : kThreads) * C;
+      for (unsigned j = threadIdx.x; j < n; j += kThreads)
+        o[(int64_t)p0 * C + j] = tile[j];
+      __syncthreads();
     }
   }
 }
@@ -234,7 +288,7 @@ __global__ void gather_vec4_kernel(const float* __restrict__ img,
   }
 }
 
-// Route LANES of the splat: one thread per source element (pixel i,
+// Route SCALAR of the splat: one thread per source element (pixel i,
 // channel c) of frame blockIdx.y, four scalar reductions.
 template <int CT>
 __global__ void splat_lanes_kernel(const float* __restrict__ vals,
@@ -412,8 +466,6 @@ __global__ void gather_grad_kernel(const float* __restrict__ img,
   }
 }
 
-constexpr int kThreads = 256;
-
 int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
   return (int)(b < (1 << 30) ? (b > 0 ? b : 1) : (1 << 30));
@@ -421,7 +473,7 @@ int blocks_for(int64_t n) {
 
 // The routes of fldrx_gather_f32 and fldrx_splat_f32, as ops/fastwarp.py
 // _route picks them.
-constexpr int kLanes = 0, kVec4 = 1;
+constexpr int kScalar = 0, kVec4 = 1;
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
@@ -446,18 +498,18 @@ extern "C" int fldrx_gather_f32(const float* img, const float* sx,
     gather_vec4_kernel<<<grid_for(n / 4, B), kThreads, 0, s>>>(
         img, sx, sy, out, B, H, W, C, Ho, Wo, mask);
   else if (C == 3)
-    gather_lanes_kernel<3><<<grid_for(n, B), kThreads, 0, s>>>(
-        img, sx, sy, out, B, H, W, C, Ho, Wo, mask);
+    gather_pixels_kernel<3><<<grid_for(n / 3, B), kThreads, 0, s>>>(
+        img, sx, sy, out, B, H, W, Ho, Wo, mask);
   else if (C == 2)
-    gather_lanes_kernel<2><<<grid_for(n, B), kThreads, 0, s>>>(
-        img, sx, sy, out, B, H, W, C, Ho, Wo, mask);
+    gather_pixels_kernel<2><<<grid_for(n / 2, B), kThreads, 0, s>>>(
+        img, sx, sy, out, B, H, W, Ho, Wo, mask);
   else
-    gather_lanes_kernel<0><<<grid_for(n, B), kThreads, 0, s>>>(
+    gather_lanes_kernel<<<grid_for(n, B), kThreads, 0, s>>>(
         img, sx, sy, out, B, H, W, C, Ho, Wo, mask);
   return (int)cudaGetLastError();
 }
 
-// out zeroed by the caller.
+// Zeroes out, then adds into it.
 extern "C" int fldrx_splat_f32(const float* vals, const float* tx,
                                const float* ty, float* out, int B, int H,
                                int W, int C, int route, void* stream) {
@@ -467,6 +519,8 @@ extern "C" int fldrx_splat_f32(const float* vals, const float* tx,
     return (int)cudaErrorInvalidValue;
   if (n == 0 || B == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * n * B, s);
+  if (err != cudaSuccess) return (int)err;
   if (route == kVec4 && C == 4)
     splat_vec4_kernel<1><<<grid_for(n / 4, B), kThreads, 0, s>>>(
         vals, tx, ty, out, B, H, W, C);

@@ -28,9 +28,11 @@ show that its path went through the kernels.
 The gather and splat kernels take one of two routes (csrc/warp.cu), which
 `_route` picks from C and the data pointers' alignment: VEC4, one thread
 per 4-channel group with 16-byte loads, stores and reductions, where C is
-a multiple of 4 and every pointer is 16-byte aligned; else LANES, one
-thread per channel. A contiguous slice such as `x[1:]` can start off a
-16-byte boundary, so the pointers are checked on every call.
+a multiple of 4 and every pointer is 16-byte aligned; else SCALAR, 4-byte
+accesses with threads on channels (the gather at C = 2, 3: on pixels,
+stores staged through shared memory). A contiguous slice such as `x[1:]`
+can start off a 16-byte boundary, so the pointers are checked on every
+call.
 """
 
 from __future__ import annotations
@@ -52,18 +54,19 @@ __all__ = ["gather", "gather_plain", "splat", "splat_plain", "gather_grad",
 LAUNCHES = {"gather": 0, "splat": 0, "gather_grad": 0, "splat_grad": 0}
 
 # the `route` argument of fldrx_gather_f32 and fldrx_splat_f32
-LANES, VEC4 = 0, 1
+SCALAR, VEC4 = 0, 1
 # the kernels index within one frame in 32 bits
 MAX_FRAME_ELEMS = 2 ** 31 - 1
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
     """True for CUDA tensors, False for CPU ones; raises on a mix."""
+    cuda = [t.is_cuda for t in tensors]
+    if all(cuda):
+        return True
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
-    if kinds == {"cuda"}:
-        return True
     raise ValueError(f"tensors on {sorted(kinds)}: expected all on cpu "
                      "or all on cuda")
 
@@ -77,20 +80,25 @@ def refuse_grad(what: str, route: str, *tensors: torch.Tensor) -> None:
             f"carry no gradient; use {route}")
 
 
+# The wrappers run once per kernel launch and the card waits on them at the
+# small shapes, so they stay on cheap calls: is_contiguous() before
+# contiguous(), and the current stream's raw pointer rather than a
+# torch.cuda.Stream object.
+
 def _f32(t: torch.Tensor, name: str) -> torch.Tensor:
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
-    return t.contiguous()
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _route(C: int, *ptrs: int) -> int:
     """VEC4 when C is a multiple of 4 and every data pointer is 16-byte
-    aligned, else LANES."""
-    return VEC4 if C % 4 == 0 and all(p % 16 == 0 for p in ptrs) else LANES
+    aligned, else SCALAR."""
+    return VEC4 if C % 4 == 0 and all(p % 16 == 0 for p in ptrs) else SCALAR
 
 
 def _check_frame(what: str, elems: int) -> None:
@@ -139,7 +147,7 @@ def gather(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     B, H, W, C = img.shape
     Ho, Wo = sx.shape[1], sx.shape[2]
     _check_frame("gather", Ho * Wo * C)
-    out = torch.empty((B, Ho, Wo, C), dtype=torch.float32, device=img.device)
+    out = img.new_empty((B, Ho, Wo, C))
     src, dst = img.data_ptr(), out.data_ptr()
     err = _build.library("warp").fldrx_gather_f32(
         src, sx.data_ptr(), sy.data_ptr(), dst, B, H, W, C, Ho, Wo,
@@ -167,7 +175,7 @@ def splat(vals: torch.Tensor, tx: torch.Tensor,
     vals, tx, ty = _f32(vals, "vals"), _f32(tx, "tx"), _f32(ty, "ty")
     B, H, W, C = vals.shape
     _check_frame("splat", H * W * C)
-    out = torch.zeros_like(vals)
+    out = torch.empty_like(vals)           # zeroed by the entry point
     src, dst = vals.data_ptr(), out.data_ptr()
     err = _build.library("warp").fldrx_splat_f32(
         src, tx.data_ptr(), ty.data_ptr(), dst, B, H, W, C,

@@ -75,10 +75,15 @@ def load_npz(path: str) -> Tuple[Any, Dict[str, np.ndarray], Dict[str, np.ndarra
     return unflatten_params(flat), extras, meta
 
 
-def params_from_numpy(tree, device="cpu", dtype=torch.float32):
-    """Numpy parameter tree → the port's tree of tensors on `device`.
+def params_from_numpy(tree, device=None, dtype=torch.float32):
+    """Numpy parameter tree → the port's tree of tensors on `device` (None
+    means cuda, `resolve_device`).
 
     A dict with a 4-D "w" is a conv: its HWIO weight becomes OIHW."""
+    return _tensors(tree, resolve_device(device), dtype)
+
+
+def _tensors(tree, device, dtype):
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
@@ -87,10 +92,10 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32):
                 out[k] = torch.tensor(np.transpose(a, (3, 2, 0, 1)),
                                       dtype=dtype, device=device)
             else:
-                out[k] = params_from_numpy(v, device, dtype)
+                out[k] = _tensors(v, device, dtype)
         return out
     if isinstance(tree, (list, tuple)):
-        return [params_from_numpy(v, device, dtype) for v in tree]
+        return [_tensors(v, device, dtype) for v in tree]
     return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
 
 

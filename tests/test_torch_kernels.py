@@ -90,12 +90,12 @@ def _at_offset(shape, offset: int, g, dev="cpu"):
     ((1, 8, 8, 4), 0, fastwarp.VEC4),
     ((2, 5, 7, 32), 0, fastwarp.VEC4),
     ((1, 3, 5, 128), 4, fastwarp.VEC4),       # 16 bytes in: still aligned
-    ((1, 8, 8, 4), 1, fastwarp.LANES),        # 4 bytes in
-    ((1, 8, 8, 64), 2, fastwarp.LANES),       # 8 bytes in
-    ((1, 8, 8, 3), 0, fastwarp.LANES),
-    ((1, 8, 8, 2), 0, fastwarp.LANES),
-    ((1, 8, 8, 49), 0, fastwarp.LANES),
-    ((1, 8, 8, 1), 0, fastwarp.LANES),
+    ((1, 8, 8, 4), 1, fastwarp.SCALAR),        # 4 bytes in
+    ((1, 8, 8, 64), 2, fastwarp.SCALAR),       # 8 bytes in
+    ((1, 8, 8, 3), 0, fastwarp.SCALAR),
+    ((1, 8, 8, 2), 0, fastwarp.SCALAR),
+    ((1, 8, 8, 49), 0, fastwarp.SCALAR),
+    ((1, 8, 8, 1), 0, fastwarp.SCALAR),
 ])
 def test_warp_route(shape, offset, route):
     """The gather and splat wrappers' route: VEC4 only where C is a
@@ -109,7 +109,7 @@ def test_warp_route(shape, offset, route):
     assert fastwarp._route(shape[-1], out.data_ptr(), x.data_ptr()) == route
     # a batch slice x[1:] of C = 4 rows stays 16-byte aligned, of C = 3
     # rows with an odd pixel count does not
-    for C, want in ((4, fastwarp.VEC4), (3, fastwarp.LANES)):
+    for C, want in ((4, fastwarp.VEC4), (3, fastwarp.SCALAR)):
         sl = torch.zeros(3, 5, 7, C)[1:]
         assert fastwarp._route(C, sl.data_ptr(), out.data_ptr()) == want
 
@@ -130,7 +130,7 @@ def test_gather_kernel_matches_plain(card, C, mask):
     or 32) sampled on a 29×51 grid, with taps in and out of frame; from an
     aligned tensor, from a batch slice img[1:] and from a contiguous view
     that starts one float into its storage (off every 16-byte boundary, so
-    LANES where C % 4 == 0 would allow VEC4)."""
+    SCALAR where C % 4 == 0 would allow VEC4)."""
     g = torch.Generator(device="cpu").manual_seed(C)
     B, H, W, Ho, Wo = 2, 37, 45, 29, 51
     full = _at_offset((B + 1, H, W, C), 0, g, card)
@@ -156,7 +156,7 @@ def test_splat_kernel_matches_plain(card, C, flow):
     """Both routes at a ragged 37×45 frame, batch 2: a smooth flow of ±5
     px; a wide random flow (σ 50 px, most targets far apart and many out of
     frame); every target out of frame (the result is all zero); and vals
-    from a view one float into its storage (LANES where C % 4 == 0 would
+    from a view one float into its storage (SCALAR where C % 4 == 0 would
     allow VEC4)."""
     g = torch.Generator(device="cpu").manual_seed(C)
     B, H, W = 2, 37, 45

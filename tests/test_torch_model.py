@@ -82,7 +82,7 @@ def psnr(a, b, peak=2.0) -> float:
 def weights():
     jtree, _, _ = load_params_npz(japi.DEFAULT_NPZ)
     return (jax.tree.map(jnp.asarray, jtree),
-            params_from_numpy(load_npz(tapi.DEFAULT_NPZ)[0]))
+            params_from_numpy(load_npz(tapi.DEFAULT_NPZ)[0], "cpu"))
 
 
 # -- refine UNet ------------------------------------------------------------

@@ -90,7 +90,7 @@ def train_pair():
     (_, (jm, jouts)), jg = jax.jit(jax.value_and_grad(
         loss_fn, has_aux=True))(jp)
 
-    tp = params_from_numpy(load_npz(DEFAULT_NPZ)[0])
+    tp = params_from_numpy(load_npz(DEFAULT_NPZ)[0], "cpu")
     for _, p in named_leaves(tp):
         p.requires_grad_(True)
     tframes, ttarget, tt = (torch.as_tensor(batch[k])
@@ -135,7 +135,7 @@ def test_forward_train_validation_crop_matches_fldrx():
         jnp.asarray(frames), jc, 2), jnp.asarray(t), validation=True)
     with torch.no_grad():
         got = tf.forward_train(
-            params_from_numpy(load_npz(DEFAULT_NPZ)[0]), tc,
+            params_from_numpy(load_npz(DEFAULT_NPZ)[0], "cpu"), tc,
             tpipe.build_pyramid(torch.as_tensor(frames), tc, 2),
             torch.as_tensor(t), validation=True)
     assert [tuple(o.shape) for o in got["out_pyramid"]] == \

@@ -101,7 +101,7 @@ def test_optimizer_matches_optax(weight_decay):
     tc = tcfg.papermodel().replace(**kw)
     jparams = j_init_params(jax.random.PRNGKey(0), jc)
     jstate = jtrainer.TrainState.create(jparams, jc, steps_per_epoch=2)
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     tstate = TrainState.create(tparams, tc, steps_per_epoch=2)
     rng = np.random.RandomState(0)
     for _ in range(6):
@@ -109,7 +109,7 @@ def test_optimizer_matches_optax(weight_decay):
             lambda a: rng.randn(*a.shape).astype(np.float32), jparams)
         jstate = jstate.apply_gradients(jax.tree.map(jnp.asarray, grads))
         for (_, p), (_, g) in zip(named_leaves(tparams),
-                                  named_leaves(params_from_numpy(grads))):
+                                  named_leaves(params_from_numpy(grads, "cpu"))):
             p.grad = g if p.requires_grad else None
         tstate.apply_gradients()
         ref = jflatten(jax.tree.map(np.asarray, jstate.params))
@@ -196,7 +196,7 @@ def test_checkpoint_loads_in_fldrx(tmp_path):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
 
     tree, meta, opt = sm.load(specific_epoch=9)
-    fresh = TrainState.create(params_from_numpy(tree), tc)
+    fresh = TrainState.create(params_from_numpy(tree, "cpu"), tc)
     fresh.load_optimizer_state(opt, int(meta["step"]))
     assert fresh.step == 1 and float(meta["best_PSNR"]) == 25.5
     a, b = state.optimizer_state(), fresh.optimizer_state()

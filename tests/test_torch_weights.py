@@ -53,7 +53,7 @@ def test_load_npz_matches_fldrx_tree():
     the OIHW → HWIO transpose; extras and meta come through unchanged."""
     jtree, jextras, jmeta = load_params_npz(DEFAULT_NPZ)
     ttree, textras, tmeta = load_npz(DEFAULT_NPZ)
-    params = params_from_numpy(ttree)
+    params = params_from_numpy(ttree, "cpu")
     jflat = flatten_params(jtree)
     tflat = flatten_params(_to_numpy_tree(params))
     assert len(jflat) + len(jextras) + len(jmeta) == 59
@@ -69,10 +69,23 @@ def test_load_npz_matches_fldrx_tree():
     assert tuple(w.shape) == (16, 26, 4, 4)            # OIHW
 
 
+def test_params_from_numpy_defaults_to_the_card():
+    """With no device, the weights go to cuda: without a GPU the loader
+    raises rather than fall back to the CPU; `device="cpu"` loads there."""
+    tree = {"conv": {"w": np.ones((3, 3, 2, 4), np.float32),
+                     "b": np.zeros(4, np.float32)}}
+    assert params_from_numpy(tree, "cpu")["conv"]["w"].is_cpu
+    if torch.cuda.is_available():
+        assert params_from_numpy(tree)["conv"]["w"].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(tree)
+
+
 def test_params_from_numpy_roundtrips_init_params():
     cfg = jcfg.papermodel().replace(exac_one_ev=False)
     tree = jax.tree.map(np.asarray, init_params(jax.random.PRNGKey(3), cfg))
-    back = flatten_params(_to_numpy_tree(params_from_numpy(tree)))
+    back = flatten_params(_to_numpy_tree(params_from_numpy(tree, "cpu")))
     ref = flatten_params(tree)
     assert sorted(back) == sorted(ref)
     for k, v in ref.items():
