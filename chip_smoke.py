@@ -287,20 +287,16 @@ def smooth_targets(g, B, H, W, coarse, px):
 
 def bare_launch(fn: str, C: int, ins, out, *dims):
     """The C entry point `fn` alone on fixed buffers, with the route the
-    wrapper would pick; a checkout whose entry points take no route gets
-    none."""
+    wrapper would pick."""
     import torch
 
     from fldrx_torch.ops import _build, fastwarp
 
-    route = fastwarp._route(C, ins[0].data_ptr(), out.data_ptr()) \
-        if hasattr(fastwarp, "_route") else None
-    args = (*[t.data_ptr() for t in ins], out.data_ptr(), *dims,
-            *(() if route is None else (route,)),
+    route = fastwarp._route(C, ins[0].data_ptr(), out.data_ptr())
+    args = (*[t.data_ptr() for t in ins], out.data_ptr(), *dims, route,
             torch.cuda.current_stream().cuda_stream)
     f = getattr(_build.library("warp"), fn)
-    name = "thread per pixel" if route is None else ("scalar", "vec4")[route]
-    return (lambda: _build.check(f(*args), fn)), name
+    return (lambda: _build.check(f(*args), fn)), ("scalar", "vec4")[route]
 
 
 def gather_row(peaks, g, label, B, H, W, C, mask, coarse, px):

@@ -290,13 +290,11 @@ __global__ void gather_vec4_kernel(const float* __restrict__ img,
 
 // Route SCALAR of the splat: one thread per source element (pixel i,
 // channel c) of frame blockIdx.y, four scalar reductions.
-template <int CT>
 __global__ void splat_lanes_kernel(const float* __restrict__ vals,
                                    const float* __restrict__ tx,
                                    const float* __restrict__ ty,
                                    float* __restrict__ out, int B, int H,
-                                   int W, int C_) {
-  const int C = CT > 0 ? CT : C_;
+                                   int W, int C) {
   const unsigned hw = (unsigned)H * W, n = hw * C;
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
     const float* v = vals + (int64_t)b * n;
@@ -320,14 +318,13 @@ __global__ void splat_lanes_kernel(const float* __restrict__ vals,
 
 // Route VEC4 of the splat: one thread per (source pixel, 4-channel group)
 // of frame blockIdx.y, four 16-byte reductions; C % 4 == 0, vals and out
-// 16-byte aligned. GT is C / 4 where a path fixes it, else 0.
-template <int GT>
+// 16-byte aligned.
 __global__ void splat_vec4_kernel(const float* __restrict__ vals,
                                   const float* __restrict__ tx,
                                   const float* __restrict__ ty,
                                   float* __restrict__ out, int B, int H,
                                   int W, int C) {
-  const int G = GT > 0 ? GT : C / 4;
+  const int G = C / 4;
   const unsigned hw = (unsigned)H * W, n = hw * G;
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
     const float4* v =
@@ -521,17 +518,11 @@ extern "C" int fldrx_splat_f32(const float* vals, const float* tx,
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * n * B, s);
   if (err != cudaSuccess) return (int)err;
-  if (route == kVec4 && C == 4)
-    splat_vec4_kernel<1><<<grid_for(n / 4, B), kThreads, 0, s>>>(
-        vals, tx, ty, out, B, H, W, C);
-  else if (route == kVec4)
-    splat_vec4_kernel<0><<<grid_for(n / 4, B), kThreads, 0, s>>>(
-        vals, tx, ty, out, B, H, W, C);
-  else if (C == 49)
-    splat_lanes_kernel<49><<<grid_for(n, B), kThreads, 0, s>>>(
+  if (route == kVec4)
+    splat_vec4_kernel<<<grid_for(n / 4, B), kThreads, 0, s>>>(
         vals, tx, ty, out, B, H, W, C);
   else
-    splat_lanes_kernel<0><<<grid_for(n, B), kThreads, 0, s>>>(
+    splat_lanes_kernel<<<grid_for(n, B), kThreads, 0, s>>>(
         vals, tx, ty, out, B, H, W, C);
   return (int)cudaGetLastError();
 }

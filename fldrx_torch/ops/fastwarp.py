@@ -61,10 +61,9 @@ MAX_FRAME_ELEMS = 2 ** 31 - 1
 
 def _on_card(*tensors: torch.Tensor) -> bool:
     """True for CUDA tensors, False for CPU ones; raises on a mix."""
-    cuda = [t.is_cuda for t in tensors]
-    if all(cuda):
-        return True
     kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors on {sorted(kinds)}: expected all on cpu "
@@ -80,11 +79,6 @@ def refuse_grad(what: str, route: str, *tensors: torch.Tensor) -> None:
             f"carry no gradient; use {route}")
 
 
-# The wrappers run once per kernel launch and the card waits on them at the
-# small shapes, so they stay on cheap calls: is_contiguous() before
-# contiguous(), and the current stream's raw pointer rather than a
-# torch.cuda.Stream object.
-
 def _f32(t: torch.Tensor, name: str) -> torch.Tensor:
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -92,7 +86,7 @@ def _f32(t: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _route(C: int, *ptrs: int) -> int:

@@ -5,8 +5,10 @@ any checkout, so that two checkouts can be timed in one run on one card:
 
     python fldrx_torch/tools/warp_timing.py [--root DIR] [--out FILE]
 
---root is the checkout whose fldrx_torch is timed (default: this one);
-the rows and their timing are always this checkout's chip_smoke.py. Prints
+--root is the checkout whose fldrx_torch is timed (default: this one); its
+gather and splat entry points must take the `route` argument that
+`fastwarp._route` picks. The rows and their timing are always this
+checkout's chip_smoke.py. Prints
 one JSON line: the card, the root and the rows; --out also writes it to a
 file. Needs a GPU.
 """

@@ -107,11 +107,14 @@ def test_warp_route(shape, offset, route):
     assert x.is_contiguous()
     assert fastwarp._route(shape[-1], x.data_ptr(), out.data_ptr()) == route
     assert fastwarp._route(shape[-1], out.data_ptr(), x.data_ptr()) == route
-    # a batch slice x[1:] of C = 4 rows stays 16-byte aligned, of C = 3
-    # rows with an odd pixel count does not
-    for C, want in ((4, fastwarp.VEC4), (3, fastwarp.SCALAR)):
-        sl = torch.zeros(3, 5, 7, C)[1:]
-        assert fastwarp._route(C, sl.data_ptr(), out.data_ptr()) == want
+    # a batch slice x[1:] of C = 4 rows keeps its storage's alignment:
+    # VEC4 from an aligned tensor, SCALAR from one that starts one float in
+    aligned = torch.empty(16)
+    for offset, want in ((0, fastwarp.VEC4), (1, fastwarp.SCALAR)):
+        sl = _at_offset((3, 5, 7, 4), offset, torch.Generator())[1:]
+        assert sl.is_contiguous()
+        assert (sl.data_ptr() % 16 == 0) == (want == fastwarp.VEC4)
+        assert fastwarp._route(4, sl.data_ptr(), aligned.data_ptr()) == want
 
 
 def test_warp_frame_limit():
