@@ -14,15 +14,21 @@ script exits non-zero:
   1. card check: a CUDA device must be present; prints its name and power
      limit (nvidia-smi).
   2. kernels: the build (each kernel's registers and spills; conv3x3's
-     SASS must hold tensor-core instructions and the splat's adds must be
-     RED reductions, no ATOM, both counted with cuobjdump); then the
-     gather and the splat at every shape the paths give them (GATHER_ROWS,
-     SPLAT_ROWS: 4K im_tot gather 2304×4096×3 with mask, flowback gather
-     288×512×2, training gather 8×512×512×3, the teacher's dec2 warp
-     8×128×128×32; splat C=4 at 2304×4096 and 8×512×512, C=49 at 288×512
-     and 8×64×64; smooth random flows), each timed through the wrapper and
-     as the bare launch of its C entry point; gather_grad (8×512×512×3,
-     mask on) and splat_grad (C=4 at 8×512×512, C=49 at 8×64×64); conv3x3
+     SASS must hold tensor-core instructions, and the adds of the splat
+     and of gather_grad's dimg must be RED reductions, no ATOM, both
+     counted with cuobjdump); then the gather and the splat at every shape
+     the paths give them (GATHER_ROWS, SPLAT_ROWS: 4K im_tot gather
+     2304×4096×3 with mask, flowback gather 288×512×2, training gather
+     8×512×512×3, the teacher's dec2 warp 8×128×128×32; splat C=4 at
+     2304×4096 and 8×512×512, C=49 at 288×512 and 8×64×64; smooth random
+     flows) and the two VJP kernels at the forms the train step launches
+     (GATHER_GRAD_ROWS, SPLAT_GRAD_ROWS: gather_grad coords only at
+     8×512×512×3 and dimg with coords at 8×512×512×2, mask on, the latter
+     also from inputs one float into their storage; splat_grad with
+     dtx/dty at 8×512×512×4 and dvals only at 8×64×64×49; and the rows
+     timed before the forms were known, gather_grad dimg with coords at
+     C=3 and splat_grad with dtx/dty at C=49), each timed through the
+     wrapper and as the bare launch of its C entry point; conv3x3
      at the five packed shapes of the 4K path (enc1 576×1024 416→64, enc2
      64→32, enc3 288×512 128→64, dec2 192→64, dec3 256→96) on random dense
      weights and at enc1 on the checkpoint's repacked weights, against
@@ -32,12 +38,14 @@ script exits non-zero:
      u-planes (1×4×576×12288 f32, the padded 4K frame) and the
      deinterleave, which no path launches (1×2304×12288 f32, bit for bit
      and through the round trip). Each against its plain version on the
-     same inputs (the gather within 1e-5, the splat within
-     1e-4·(1+|ref|)), with the median time of 20 launches beside the plain
-     version's, the PyTorch library call's (F.grid_sample for the gather,
-     index_add_ for the splat, cuDNN bf16 channels-last for conv3x3; none
-     for the correlation and splat_grad) and the bound from bytes and
-     operations.
+     same inputs (the gather within 1e-5, splat_grad's dvals bit for bit,
+     the splat and the other VJP outputs within 1e-4·(1+|ref|)), with the
+     median time of 20 launches beside the plain version's, the PyTorch
+     library call's (F.grid_sample for the gather and for splat_grad's
+     dvals alone, index_add_ for the splat, grid_sampler_2d_backward with
+     the same outputs for gather_grad, cuDNN bf16 channels-last for
+     conv3x3; none for the correlation and splat_grad with dtx/dty) and
+     the bound from bytes and operations.
   3. inference held: prepare_model() with the real checkpoint on cuda and
      on cpu, interpolate_multi_np at 768×1280 with three t values; the two
      outputs must agree to PSNR ≥ 60 dB.
@@ -58,8 +66,9 @@ script exits non-zero:
      the first batch as a fresh run does; one warm-up step then 5 timed
      steps fenced by torch.cuda.synchronize(); losses finite; ms per step,
      samples/s, peak memory and kernel launches per step (counts zeroed
-     just before the timed steps; exactly gather 24 and splat 16 per
-     step, PER_STEP); then a SaveManager save into a
+     just before the timed steps; exactly gather 24, splat 16,
+     gather_grad 24 and splat_grad 16 per step, PER_STEP, and the VJP
+     launches per form, FORMS_PER_STEP); then a SaveManager save into a
      temporary directory and a load that must restore the parameters and
      the optimiser state exactly. The card machine has no PIL and no JAX,
      so this drives the trainer's entry points (TrainState,
@@ -134,12 +143,16 @@ def bound_ms(peaks, nbytes: float, flops: float, flop_rate: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def median_ms(fn, n: int = 20) -> float:
+def median_ms(fn, n: int = 20, setup=None) -> float:
+    """The median time of n runs of fn on the card, by CUDA events; setup,
+    if given, runs before each, outside the timed window."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(n):
+        if setup is not None:
+            setup()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -247,6 +260,15 @@ def check_kernels(peaks):
         raise AssertionError(f"splat kernels without RED, with ATOM or "
                              f"without 16-byte RED on the vector route: "
                              f"{fwd}")
+    # gather_grad's dimg adds too: each lane-group instantiation (<4>, <2>,
+    # <1>: floats per unit) has RED, the <4> one 16-byte RED, and none ATOM
+    bwd = sass_atomics(_build.library_path("warp"), "gather_grad_lanes")
+    print(f"gather_grad SASS: {bwd}", flush=True)
+    if len(bwd) != 3 or any(v["ATOM"] or not v["RED"]
+                            or ("ILi4E" in k) != (v["RED.F32x4"] == v["RED"])
+                            for k, v in bwd.items()):
+        raise AssertionError(f"gather_grad kernels without RED, with ATOM or "
+                             f"without 16-byte RED at 4 floats a unit: {bwd}")
     return warp_rows(peaks)
 
 
@@ -285,18 +307,34 @@ def smooth_targets(g, B, H, W, coarse, px):
     return xs + flow[..., 0], ys + flow[..., 1]
 
 
-def bare_launch(fn: str, C: int, ins, out, *dims):
-    """The C entry point `fn` alone on fixed buffers, with the route the
-    wrapper would pick."""
+def bare_launch(fn: str, *args):
+    """The C entry point `fn` of the warp library alone on fixed buffers:
+    a tensor passes its data pointer, None a null pointer, an int itself;
+    the current stream goes last."""
     import torch
 
-    from fldrx_torch.ops import _build, fastwarp
+    from fldrx_torch.ops import _build
 
-    route = fastwarp._route(C, ins[0].data_ptr(), out.data_ptr())
-    args = (*[t.data_ptr() for t in ins], out.data_ptr(), *dims, route,
-            torch.cuda.current_stream().cuda_stream)
+    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     f = getattr(_build.library("warp"), fn)
-    return (lambda: _build.check(f(*args), fn)), ("scalar", "vec4")[route]
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: _build.check(f(*vals, stream), fn)
+
+
+def at_offset(x, offset: int):
+    """A contiguous copy of x that starts `offset` floats into its storage
+    (offset 1: off every 8- and 16-byte boundary)."""
+    flat = x.new_empty(x.numel() + offset)
+    out = flat[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def grid_of(sx, sy, H: int, W: int):
+    """grid_sample's normalised grid (align_corners=False) for absolute
+    pixel coords."""
+    import torch
+    return torch.stack([(2 * sx + 1) / W - 1, (2 * sy + 1) / H - 1], -1)
 
 
 def gather_row(peaks, g, label, B, H, W, C, mask, coarse, px):
@@ -315,17 +353,18 @@ def gather_row(peaks, g, label, B, H, W, C, mask, coarse, px):
         raise AssertionError(f"gather {label} disagrees with its plain "
                              f"version: {err}")
     img_nchw = img.permute(0, 3, 1, 2).contiguous()
-    grid = torch.stack([(2 * sx + 1) / W - 1, (2 * sy + 1) / H - 1], -1)
-    launch, route = bare_launch("fldrx_gather_f32", C, (img, sx, sy),
-                                torch.empty_like(got), B, H, W, C, H, W,
-                                int(mask))
+    grid = grid_of(sx, sy, H, W)
+    out = torch.empty_like(got)
+    route = fastwarp._route(C, img.data_ptr(), out.data_ptr())
+    launch = bare_launch("fldrx_gather_f32", img, sx, sy, out, B, H, W, C, H,
+                         W, int(mask), route)
     n = B * H * W
     b, by = bound_ms(peaks, 4 * (2 * n * C + 2 * n), n * (7 * C + 12),
                      peaks[2])
     return dict(
         shape=f"{label}: img {B}x{H}x{W}x{C} f32, mask "
               f"{'on' if mask else 'off'}",
-        kernel_route=route, max_abs_err=err,
+        kernel_route=("scalar", "vec4")[route], max_abs_err=err,
         ms=median_ms(lambda: fastwarp.gather(img, sx, sy, mask)),
         kernel_ms=median_ms(launch),
         plain_ms=median_ms(lambda: fastwarp.gather_plain(img, sx, sy, mask)),
@@ -351,149 +390,199 @@ def splat_row(peaks, g, label, B, H, W, C, coarse, px):
                              f"version: max abs {err}")
     # the entry point zeroes its canvas, then adds into it; the index_add_
     # yardstick adds into a canvas zeroed once
-    launch, route = bare_launch("fldrx_splat_f32", C, (vals, tx, ty),
-                                torch.zeros_like(vals), B, H, W, C)
+    out = torch.zeros_like(vals)
+    route = fastwarp._route(C, vals.data_ptr(), out.data_ptr())
+    launch = bare_launch("fldrx_splat_f32", vals, tx, ty, out, B, H, W, C,
+                         route)
     n = B * H * W
     b, by = bound_ms(peaks, 4 * (2 * n * C + 2 * n), n * (8 * C + 10),
                      peaks[2])
     return dict(
-        shape=f"{label}: vals {B}x{H}x{W}x{C} f32", kernel_route=route,
-        max_abs_err=err, ms=median_ms(lambda: fastwarp.splat(vals, tx, ty)),
+        shape=f"{label}: vals {B}x{H}x{W}x{C} f32",
+        kernel_route=("scalar", "vec4")[route], max_abs_err=err,
+        ms=median_ms(lambda: fastwarp.splat(vals, tx, ty)),
         kernel_ms=median_ms(launch),
         plain_ms=median_ms(lambda: fastwarp.splat_plain(vals, tx, ty)),
         bound_ms=b, bound_by=by,
         library_ms=median_ms(index_add_yardstick(vals, tx, ty)))
 
 
-def warp_rows(peaks):
-    """Phase 2 for the gather and the splat at GATHER_ROWS and SPLAT_ROWS:
-    each against its plain version (the gather within 1e-5, expected 0;
-    the splat within 1e-4·(1+|ref|)), timed through the wrapper, as the
-    bare launch, as the plain version and as the library call."""
-    import torch
-
-    g = torch.Generator(device="cuda").manual_seed(0)
-    gathers = [gather_row(peaks, g, *r) for r in GATHER_ROWS]
-    torch.cuda.empty_cache()
-    splats = [splat_row(peaks, g, *r) for r in SPLAT_ROWS]
-    torch.cuda.empty_cache()
-    for name, rows in (("gather", gathers), ("splat", splats)):
-        for r in rows:
-            print(f"kernel {name}: err {r['max_abs_err']:.3g}, {r['ms']:.4f} "
-                  f"ms (bare {r['kernel_ms']:.4f}, {r['kernel_route']}; "
-                  f"plain {r['plain_ms']:.3f}, library "
-                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}) at {r['shape']}", flush=True)
-    # the top-level numbers are the first row's, but max_abs_err is the
-    # largest of all rows
-    return {
-        "gather": dict(
-            name="gather", route="cuda", source="fldrx_torch/csrc/warp.cu",
-            replaces="fldrx/ops/fastwarp.py:307",
-            tolerance="1e-5 max abs (expected 0)",
-            library_call="F.grid_sample, no mask",
-            **dict(gathers[0], max_abs_err=max(r["max_abs_err"]
-                                               for r in gathers)),
-            shapes=gathers[1:]),
-        "splat": dict(
-            name="splat", route="cuda", source="fldrx_torch/csrc/warp.cu",
-            replaces="fldrx/ops/fastwarp.py:986",
-            also_replaces="fldrx/ops/fastwarp.py:776",
-            tolerance="1e-4*(1+|ref|)",
-            library_call="index_add_ of the four corners' updates into a "
-                         "zeroed canvas",
-            **dict(splats[0], max_abs_err=max(r["max_abs_err"]
-                                              for r in splats)),
-            shapes=splats[1:]),
-    }
+# The VJP kernels at the forms the train step launches (batch 8, level 0 at
+# 512×512; the feature splats at the 64×64 level-0 feature grid), and the
+# rows timed before those forms were known, kept for continuity.
+# gather_grad: (label, B, H, W, C, mask, want_img, offset, coarse grid, ±px);
+# the z and im_tot gathers warp data frames, so only coords are wanted; the
+# flowback gathers warp a flow and want dimg too; offset 1 starts img and g
+# one float into their storage, off every 8-byte boundary (the scalar
+# layout where C = 2 would take float2).
+GATHER_GRAD_ROWS = (
+    ("step z, im_tot: coords", 8, 512, 512, 3, True, False, 0, (8, 8), 24.0),
+    ("step flowback: dimg+coords", 8, 512, 512, 2, True, True, 0, (8, 8),
+     24.0),
+    ("flowback one float in: dimg+coords", 8, 512, 512, 2, True, True, 1,
+     (8, 8), 24.0),
+    ("old V1 row: dimg+coords", 8, 512, 512, 3, True, True, 0, (8, 8), 24.0),
+)
+# splat_grad: (label, B, H, W, C, coords, coarse grid, ±px); the feature
+# splats' flow is detached, so they want dvals only
+SPLAT_GRAD_ROWS = (
+    ("step level 0: dvals+coords", 8, 512, 512, 4, True, (8, 8), 24.0),
+    ("step feature: dvals", 8, 64, 64, 49, False, (8, 8), 3.0),
+    ("old V2 row: dvals+coords", 8, 64, 64, 49, True, (8, 8), 3.0),
+)
 
 
-def check_train_kernels(dev, peaks, results):
-    """Phase 2 for the two VJP kernels at the training shapes (batch 8,
-    512×512 frames, 64×64 level-0 feature grid): gather_grad and
-    splat_grad."""
+def gather_grad_row(peaks, g, label, B, H, W, C, mask, want_img, offset,
+                    coarse, px):
+    """gather_grad at one form against its plain version (every output
+    within 1e-4·(1+|ref|)); the library call is grid_sampler_2d_backward
+    with the same outputs asked for (it has no mask)."""
     import torch
 
     from fldrx_torch.ops import fastwarp
 
-    g = torch.Generator(device=dev).manual_seed(1)
-    f32_rate = peaks[2]
-    B = 8
-
-    def row(fn, plain, library, nbytes, flops, **kw):
-        b, by = bound_ms(peaks, nbytes, flops, f32_rate)
-        return dict(ms=median_ms(fn), plain_ms=median_ms(plain), bound_ms=b,
-                    bound_by=by,
-                    library_ms=None if library is None else median_ms(library),
-                    **kw)
-
-    # the gather's VJP: the bwarps of the frames at level 0, mask on
-    H = W = 512
-    C = 3
-    img = torch.rand(B, H, W, C, device=dev, generator=g) * 2 - 1
-    cot = torch.randn(B, H, W, C, device=dev, generator=g)
-    sx, sy = smooth_targets(g, B, H, W, (8, 8), 24.0)
+    img = at_offset(torch.rand(B, H, W, C, device="cuda", generator=g) * 2 - 1,
+                    offset)
+    cot = at_offset(torch.randn(B, H, W, C, device="cuda", generator=g),
+                    offset)
+    sx, sy = smooth_targets(g, B, H, W, coarse, px)
+    got = fastwarp.gather_grad(img, sx, sy, cot, mask, want_img)
+    ref = fastwarp.gather_grad_plain(img, sx, sy, cot, mask, want_img)
+    torch.cuda.synchronize()
+    pairs = [(a, b) for a, b in zip(got, ref) if b is not None]
+    errs = [(a - b).abs().max().item() for a, b in pairs]
+    if not max(excess(a, b) for a, b in pairs) <= 0:
+        raise AssertionError(f"gather_grad {label} disagrees with its plain "
+                             f"version: max abs {errs}")
+    # dimg is zeroed before each bare launch, outside the timed window, as
+    # the step's is: adds into a buffer left non-zero run slower (PERF.md,
+    # PR 6); the entry point zeroes it again inside (before PR 6 it did
+    # not)
+    dimg = torch.zeros_like(img) if want_img else None
+    launch = bare_launch("fldrx_gather_grad_f32", img, sx, sy, cot, dimg,
+                         torch.empty_like(sx), torch.empty_like(sy), B, H, W,
+                         C, H, W, int(mask))
     img_nchw = img.permute(0, 3, 1, 2).contiguous()
     cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
-    grid = torch.stack([(2 * sx + 1) / W - 1, (2 * sy + 1) / H - 1], -1)
-    px = B * H * W
-    got = fastwarp.gather_grad(img, sx, sy, cot, True)
-    ref = fastwarp.gather_grad_plain(img, sx, sy, cot, True)
-    torch.cuda.synchronize()
-    errs = [(a - b).abs().max().item() for a, b in zip(got, ref)]
-    if not max(excess(a, b) for a, b in zip(got, ref)) <= 0:
-        raise AssertionError(f"gather_grad disagrees with its plain version: "
-                             f"max abs {errs}")
-    results["gather_grad"] = dict(
-        name="gather_grad", route="cuda", source="fldrx_torch/csrc/warp.cu",
-        replaces="fldrx/ops/fastwarp.py:1569",
+    grid = grid_of(sx, sy, H, W)
+    n = B * H * W
+    # img and g read, dimg written; sx, sy read, dsx, dsy written
+    b, by = bound_ms(peaks, 4 * (n * C * (2 + want_img) + 4 * n),
+                     n * ((26 if want_img else 18) * C + 20), peaks[2])
+    return dict(
+        shape=f"{label}: img {B}x{H}x{W}x{C} f32, mask "
+              f"{'on' if mask else 'off'}",
         max_abs_err=max(errs),
-        library_call="torch.ops.aten.grid_sampler_2d_backward (no mask)",
-        **row(lambda: fastwarp.gather_grad(img, sx, sy, cot, True),
-              lambda: fastwarp.gather_grad_plain(img, sx, sy, cot, True),
-              lambda: torch.ops.aten.grid_sampler_2d_backward(
-                  cot_nchw, img_nchw, grid, 0, 0, False, [True, True]),
-              4 * (3 * px * C + 4 * px), px * (24 * C + 20),
-              shape=f"img {B}x{H}x{W}x{C} f32, mask on"))
-    del img, cot, sx, sy, got, ref, img_nchw, cot_nchw, grid
+        ms=median_ms(lambda: fastwarp.gather_grad(img, sx, sy, cot, mask,
+                                                  want_img)),
+        kernel_ms=median_ms(launch, setup=dimg.zero_ if want_img else None),
+        plain_ms=median_ms(lambda: fastwarp.gather_grad_plain(
+            img, sx, sy, cot, mask, want_img)),
+        bound_ms=b, bound_by=by,
+        library_ms=median_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            cot_nchw, img_nchw, grid, 0, 0, False, [want_img, True])))
 
-    # the splat's VJP: the level-0 softmax splats (C=4) and the coarse
-    # feature splats (C=49 at the 64×64 level-0 feature grid)
-    grad_rows = []
-    for (H, W, C) in ((512, 512, 4), (64, 64, 49)):
-        px = B * H * W
-        vals = torch.rand(B, H, W, C, device=dev, generator=g)
-        cot = torch.randn(B, H, W, C, device=dev, generator=g)
-        tx, ty = smooth_targets(g, B, H, W, (8, 8), 24.0 * H / 512)
-        got = fastwarp.splat_grad(vals, tx, ty, cot)
-        ref = fastwarp.splat_grad_plain(vals, tx, ty, cot)
-        torch.cuda.synchronize()
-        errs = [(a - b).abs().max().item() for a, b in zip(got, ref)]
-        if not (errs[0] <= 1e-5 and excess(got[1], ref[1]) <= 0
-                and excess(got[2], ref[2]) <= 0):
-            raise AssertionError(f"splat_grad {B}x{H}x{W}x{C} disagrees with "
-                                 f"its plain version: max abs {errs}")
-        grad_rows.append(row(
-            lambda: fastwarp.splat_grad(vals, tx, ty, cot),
-            lambda: fastwarp.splat_grad_plain(vals, tx, ty, cot),
-            None, 4 * (3 * px * C + 4 * px), px * (23 * C + 12),
-            shape=f"vals {B}x{H}x{W}x{C} f32", max_abs_err=max(errs)))
-        del vals, cot, tx, ty, got, ref
-    results["splat_grad"] = dict(
-        name="splat_grad", route="cuda", source="fldrx_torch/csrc/warp.cu",
-        replaces="fldrx/ops/fastwarp.py:1529",
-        library_call="none: no single PyTorch call computes it",
-        **grad_rows[0])
-    results["splat_grad"]["max_abs_err"] = max(r["max_abs_err"]
-                                               for r in grad_rows)
-    results["splat_grad"]["checks"] = grad_rows[1:]
-    torch.cuda.empty_cache()
-    for name in ("gather_grad", "splat_grad"):
-        r = results[name]
-        print(f"kernel {name}: err {r['max_abs_err']:.3g}, {r['ms']:.3f} ms "
-              f"(plain {r['plain_ms']:.3f}, library {r['library_ms']}, bound "
-              f"{r['bound_ms']:.3f} by {r['bound_by']}) at {r['shape']}",
-              flush=True)
+
+def splat_grad_row(peaks, g, label, B, H, W, C, coords, coarse, px):
+    """splat_grad at one form against its plain version (dvals bit for
+    bit, dtx/dty within 1e-4·(1+|ref|)); dvals alone is one grid_sample of
+    the cotangent, the library call there; with dtx/dty no single PyTorch
+    call computes it."""
+    import torch
+    import torch.nn.functional as F
+
+    from fldrx_torch.ops import fastwarp
+
+    vals = torch.rand(B, H, W, C, device="cuda", generator=g)
+    cot = torch.randn(B, H, W, C, device="cuda", generator=g)
+    tx, ty = smooth_targets(g, B, H, W, coarse, px)
+    got = fastwarp.splat_grad(vals, tx, ty, cot, coords)
+    ref = fastwarp.splat_grad_plain(vals, tx, ty, cot, coords)
+    torch.cuda.synchronize()
+    errs = [(a - b).abs().max().item() for a, b in zip(got, ref)
+            if b is not None]
+    if not (errs[0] == 0 and (not coords or (excess(got[1], ref[1]) <= 0
+                                             and excess(got[2], ref[2]) <= 0))):
+        raise AssertionError(f"splat_grad {label} disagrees with its plain "
+                             f"version: max abs {errs}")
+    launch = bare_launch("fldrx_splat_grad_f32", vals, tx, ty, cot,
+                         torch.empty_like(vals),
+                         torch.empty_like(tx) if coords else None,
+                         torch.empty_like(ty) if coords else None, B, H, W, C)
+    cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
+    grid = grid_of(tx, ty, H, W)
+    n = B * H * W
+    # g read, dvals written, tx, ty read; with coords vals read, dtx, dty
+    # written
+    b, by = bound_ms(peaks, 4 * (n * C * (2 + coords) + 2 * n * (1 + coords)),
+                     n * ((25 if coords else 7) * C + 12), peaks[2])
+    return dict(
+        shape=f"{label}: vals {B}x{H}x{W}x{C} f32", max_abs_err=max(errs),
+        ms=median_ms(lambda: fastwarp.splat_grad(vals, tx, ty, cot, coords)),
+        kernel_ms=median_ms(launch),
+        plain_ms=median_ms(lambda: fastwarp.splat_grad_plain(
+            vals, tx, ty, cot, coords)),
+        bound_ms=b, bound_by=by,
+        library_ms=None if coords else median_ms(lambda: F.grid_sample(
+            cot_nchw, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=False)))
+
+
+def warp_rows(peaks):
+    """Phase 2 for the warp kernels: the gather and the splat at
+    GATHER_ROWS and SPLAT_ROWS (the gather within 1e-5, expected 0; the
+    splat within 1e-4·(1+|ref|)), gather_grad and splat_grad at
+    GATHER_GRAD_ROWS and SPLAT_GRAD_ROWS; each against its plain version,
+    timed through the wrapper, as the bare launch, as the plain version
+    and as the library call."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for name, fn, table in (("gather", gather_row, GATHER_ROWS),
+                            ("splat", splat_row, SPLAT_ROWS),
+                            ("gather_grad", gather_grad_row, GATHER_GRAD_ROWS),
+                            ("splat_grad", splat_grad_row, SPLAT_GRAD_ROWS)):
+        rows[name] = [fn(peaks, g, *r) for r in table]
+        torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        for r in rs:
+            lib = r["library_ms"]
+            print(f"kernel {name}: err {r['max_abs_err']:.3g}, {r['ms']:.4f} "
+                  f"ms (bare {r['kernel_ms']:.4f}"
+                  + (f", {r['kernel_route']}" if "kernel_route" in r else "")
+                  + f"; plain {r['plain_ms']:.3f}, library "
+                  f"{'none' if lib is None else f'{lib:.4f}'}, bound "
+                  f"{r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}",
+                  flush=True)
+    meta = {
+        "gather": dict(replaces="fldrx/ops/fastwarp.py:307",
+                       tolerance="1e-5 max abs (expected 0)",
+                       library_call="F.grid_sample, no mask"),
+        "splat": dict(replaces="fldrx/ops/fastwarp.py:986",
+                      also_replaces="fldrx/ops/fastwarp.py:776",
+                      tolerance="1e-4*(1+|ref|)",
+                      library_call="index_add_ of the four corners' updates "
+                                   "into a zeroed canvas"),
+        "gather_grad": dict(replaces="fldrx/ops/fastwarp.py:1569",
+                            tolerance="1e-4*(1+|ref|)",
+                            library_call="torch.ops.aten."
+                                         "grid_sampler_2d_backward, the same "
+                                         "outputs, no mask"),
+        "splat_grad": dict(replaces="fldrx/ops/fastwarp.py:1529",
+                           tolerance="dvals bit-exact, dtx/dty "
+                                     "1e-4*(1+|ref|)",
+                           library_call="dvals alone: F.grid_sample of the "
+                                        "cotangent; with dtx/dty none"),
+    }
+    # the top-level numbers are the first row's, but max_abs_err is the
+    # largest of all rows
+    return {name: dict(name=name, route="cuda",
+                       source="fldrx_torch/csrc/warp.cu", **meta[name],
+                       **dict(rs[0], max_abs_err=max(r["max_abs_err"]
+                                                     for r in rs)),
+                       shapes=rs[1:])
+            for name, rs in rows.items()}
 
 
 def check_interleave(dev, peaks, results):
@@ -761,9 +850,20 @@ def require_launched(seen, kernels, where):
 # launches per 4K ×8 pair: gather 30 (2 flowback and 2 im_tot gathers per
 # t, and the 2 half-resolution z gathers), splat 24 (2 level-0 splats per t,
 # and 2 feature splats at each of 5 levels), conv3x3 35 (5 packed convs per
-# t); per training step: gather 24 and splat 16
+# t); per training step (S_trn = 3: synthesis at 4 levels): gather 24 (2 z,
+# 2 flowback and 2 im_tot gathers per level) and splat 16 (2 softmax splats
+# per level, 2 feature splats at each of 3 levels, 2 in the endflow loss),
+# and one VJP launch for each
 PER_PAIR = {"gather": 30, "splat": 24, "conv3x3": 35}
-PER_STEP = {"gather": 24, "splat": 16}
+PER_STEP = {"gather": 24, "splat": 16, "gather_grad": 24, "splat_grad": 16}
+# the VJP launches per step by form (fastwarp.FORMS): the z and im_tot
+# gathers warp data frames (coords only), the flowback gathers a flow (dimg
+# too); the softmax and endflow splats want dtx/dty, the feature splats'
+# flow is detached (dvals only)
+FORMS_PER_STEP = {"gather_grad coords C=3 mask on": 16,
+                  "gather_grad dimg+coords C=2 mask on": 8,
+                  "splat_grad dvals+coords C=4": 10,
+                  "splat_grad dvals C=49": 6}
 
 
 def require_counts(seen, per, n: int, where: str):
@@ -776,9 +876,11 @@ def require_counts(seen, per, n: int, where: str):
 
 
 def reset_launches():
+    from fldrx_torch.ops import fastwarp
     for d in _counters():
         for k in d:
             d[k] = 0
+    fastwarp.FORMS.clear()
 
 
 def main_path_held():
@@ -941,6 +1043,7 @@ def train_full(card: str, dev: str = "cuda"):
 
     from fldrx_torch.bench_inputs import train_batch, train_config
     from fldrx_torch.model.fldrnet import init_params
+    from fldrx_torch.ops import fastwarp
     from fldrx_torch.train.checkpoint import SaveManager
     from fldrx_torch.train.loop import assign_params, fit_pca_from_batch
     from fldrx_torch.train.trainer import TrainState, make_train_step
@@ -975,6 +1078,7 @@ def train_full(card: str, dev: str = "cuda"):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     seen = launches()
+    forms = {k: v / iters for k, v in sorted(fastwarp.FORMS.items())}
     losses = torch.stack(losses).cpu().tolist()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     per_step = {k: v / iters for k, v in seen.items()}
@@ -1003,11 +1107,15 @@ def train_full(card: str, dev: str = "cuda"):
                       "samples_per_s": B * iters / dt, "warmup_s": warm_s,
                       "data_s": data_s, "peak_mem_gib": peak_gb,
                       "losses": losses, "launches_per_step": per_step,
+                      "vjp_forms_per_step": forms,
                       "checkpoint_exact": exact, "card": card}), flush=True)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
     require_launched(seen, TRAIN_KERNELS, "training at full size")
     require_counts(seen, PER_STEP, iters, "training at full size")
+    if forms != FORMS_PER_STEP:
+        raise AssertionError(f"training at full size: VJP launches per step "
+                             f"by form {forms}, expected {FORMS_PER_STEP}")
     if not exact:
         raise AssertionError("checkpoint round trip did not restore the "
                              "parameters and optimiser state exactly")
@@ -1265,8 +1373,6 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
 
     results = phase("2 kernels", check_kernels, peaks)
-    phase("2 training-shape kernels", check_train_kernels, "cuda", peaks,
-          results)
     phase("2 conv3x3", check_conv3x3, "cuda", peaks, results)
     phase("2 teacher kernels", check_teacher_kernels, "cuda", peaks, results)
     phase("2 interleave", check_interleave, "cuda", peaks, results)

@@ -23,7 +23,10 @@ Comparisons with the plain versions use a tolerance of 1e-4·(1 + |ref|) for
 that reason. splat_grad has no atomics and is deterministic.
 
 `LAUNCHES` counts kernel launches (not plain-version calls), so a run can
-show that its path went through the kernels.
+show that its path went through the kernels. `FORMS` tallies the VJP
+kernels' launches by form ("gather_grad coords C=3 mask on": the outputs
+asked for, C and the mask), so a run can show which forms its path
+launches; nothing on the path reads it.
 
 The gather and splat kernels take one of two routes (csrc/warp.cu), which
 `_route` picks from C and the data pointers' alignment: VEC4, one thread
@@ -32,11 +35,16 @@ a multiple of 4 and every pointer is 16-byte aligned; else SCALAR, 4-byte
 accesses with threads on channels (the gather at C = 2, 3: on pixels,
 stores staged through shared memory). A contiguous slice such as `x[1:]`
 can start off a 16-byte boundary, so the pointers are checked on every
-call.
+call. The VJP kernels' C entry points pick their layout themselves, from
+C, the outputs asked for and the pointers (csrc/warp.cu): splat_grad's
+dvals alone is the gather of g and runs on the gather's kernels;
+gather_grad's coords alone at C = 2, 3 run a thread per pixel; the rest
+run lane groups, 16 or 8 bytes wide where C and the pointers allow.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -49,9 +57,10 @@ from .warp import (corner_taps, grid_sample_bilinear, ones_mask_sep,
 __all__ = ["gather", "gather_plain", "splat", "splat_plain", "gather_grad",
            "gather_grad_plain", "splat_grad", "splat_grad_plain",
            "gather_diff", "splat_sum_diff", "bwarp_diff", "softsplat_diff",
-           "LAUNCHES"]
+           "LAUNCHES", "FORMS"]
 
 LAUNCHES = {"gather": 0, "splat": 0, "gather_grad": 0, "splat_grad": 0}
+FORMS: Counter = Counter()
 
 # the `route` argument of fldrx_gather_f32 and fldrx_splat_f32
 SCALAR, VEC4 = 0, 1
@@ -221,6 +230,7 @@ def splat_grad(vals: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor,
     vals, tx, ty = _f32(vals, "vals"), _f32(tx, "tx"), _f32(ty, "ty")
     g = _f32(g, "g")
     B, H, W, C = vals.shape
+    _check_frame("splat_grad", H * W * C)
     dvals = torch.empty_like(vals)
     dtx = torch.empty_like(tx) if coords else None
     dty = torch.empty_like(ty) if coords else None
@@ -230,6 +240,7 @@ def splat_grad(vals: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor,
         dvals.data_ptr(), dtx.data_ptr() if coords else None,
         dty.data_ptr() if coords else None, B, H, W, C, _stream(vals))
     LAUNCHES["splat_grad"] += 1
+    FORMS[f"splat_grad {'dvals+coords' if coords else 'dvals'} C={C}"] += 1
     _build.check(err, "splat_grad")
     return dvals, dtx, dty
 
@@ -263,11 +274,14 @@ def gather_grad(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
                          f"{tuple(sx.shape)}, img {tuple(img.shape)}")
     if not _on_card(img, sx, sy, g):
         return gather_grad_plain(img, sx, sy, g, mask, want_img, want_coords)
+    if not (want_img or want_coords):
+        return None, None, None
     img, sx, sy = _f32(img, "img"), _f32(sx, "sx"), _f32(sy, "sy")
     g = _f32(g, "g")
     B, H, W, C = img.shape
     Ho, Wo = sx.shape[1], sx.shape[2]
-    dimg = torch.zeros_like(img) if want_img else None
+    _check_frame("gather_grad", max(H * W, Ho * Wo) * C)
+    dimg = torch.empty_like(img) if want_img else None    # zeroed there
     dsx = torch.empty_like(sx) if want_coords else None
     dsy = torch.empty_like(sy) if want_coords else None
     lib = _build.library("warp")
@@ -278,6 +292,9 @@ def gather_grad(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
         dsy.data_ptr() if want_coords else None,
         B, H, W, C, Ho, Wo, int(bool(mask)), _stream(img))
     LAUNCHES["gather_grad"] += 1
+    form = "+".join(n for n, w in (("dimg", want_img),
+                                   ("coords", want_coords)) if w)
+    FORMS[f"gather_grad {form} C={C} mask {'on' if mask else 'off'}"] += 1
     _build.check(err, "gather_grad")
     return dimg, dsx, dsy
 

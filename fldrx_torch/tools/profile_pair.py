@@ -26,8 +26,9 @@ peak memory it reached) and the other direction whole, then one call under
 
 Each prints one JSON line with the stage times, the device's busy time (the
 sum of kernel self times) and idle share over the profiled wall time, the
-profiled run's peak memory, and the top device kernels; the full table goes
-to --out.
+profiled run's peak memory, the top device kernels, and every kernel of
+csrc/warp.cu (the gather, the splat and their VJPs) with its launches and
+device ms; the full table goes to --out.
 """
 
 from __future__ import annotations
@@ -225,7 +226,9 @@ def main() -> int:
         "stages_ms": stages, "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-        "top_kernels": top[:25]}))
+        "top_kernels": top[:25],
+        "warp_kernels": [r for r in top if "namespace)::" in r["name"]
+                         and ("gather" in r["name"] or "splat" in r["name"])]}))
     return 0
 
 

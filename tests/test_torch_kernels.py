@@ -8,10 +8,10 @@ the port is installed:
 (--noconftest: tests/conftest.py configures JAX). chip_smoke.py holds the
 same kernels at the main path's 4K shapes and the training shapes.
 
-Tolerances: gather and splat_grad's dvals are summed term for term as their
-plain versions (≤ 1e-5, expected 0); sums over channels and the atomicAdd
-accumulations (splat, gather_grad's dimg) change order, so those are held
-at 1e-4·(1 + |ref|); the correlation kernel sums its C products in channel
+Tolerances: the gather is summed term for term as its plain version (≤
+1e-5, expected 0), and splat_grad's dvals too (max abs 0); sums over
+channels and the atomicAdd accumulations (splat, gather_grad's dimg)
+change order, so those are held at 1e-4·(1 + |ref|); the correlation kernel sums its C products in channel
 order where torch.mean does not, held at 1e-5·(1 + |ref|); the interleave
 and the deinterleave are permutations, held bit for bit; conv3x3 rounds its
 output to bf16 (one ulp is 1/128 relative), held at 2e-2 max abs and 1e-2
@@ -242,53 +242,122 @@ def _close(got, ref, rel=1e-4):
         (got - ref).abs().max().item()
 
 
-def _coords(g, B, H, W, scale, card):
-    """Absolute target/sample coords of a smooth flow of ±scale px."""
-    coarse = torch.randn(B, 2, 4, 6, generator=g) * scale
-    flow = torch.nn.functional.interpolate(coarse, size=(H, W),
-                                           mode="bilinear").permute(0, 2, 3, 1)
-    xs = torch.arange(W, dtype=torch.float32)
-    ys = torch.arange(H, dtype=torch.float32)[:, None]
-    return (xs + flow[..., 0]).to(card), (ys + flow[..., 1]).to(card)
+def _flow_targets(flow, g, B, H, W, Ho, Wo):
+    """Absolute coords [B, Ho, Wo] into an H×W frame, on the CPU: a
+    smooth ±5 px flow over a grid stretched from Ho×Wo onto H×W; a wide
+    random flow (σ 50 px, many targets out of frame); or every target out
+    of frame."""
+    xs = torch.arange(Wo, dtype=torch.float32) * (W / Wo)
+    ys = torch.arange(Ho, dtype=torch.float32)[:, None] * (H / Ho)
+    if flow == "wide":
+        fx, fy = (torch.randn(B, Ho, Wo, generator=g) * 50 for _ in range(2))
+    elif flow == "out of frame":
+        return torch.full((B, Ho, Wo), W + 1.5), torch.zeros(B, Ho, Wo)
+    else:
+        fx, fy = (torch.nn.functional.interpolate(
+            torch.randn(B, 1, 4, 6, generator=g) * 5, size=(Ho, Wo),
+            mode="bilinear")[:, 0] for _ in range(2))
+    return xs + fx, ys + fy
+
+
+# a ragged 37×45 frame, batch 2; "batch slice one float in" takes frames
+# 1: of a tensor whose storage starts one float in, so at even C its data
+# pointer is off every 8-byte boundary (37·45 ≡ 1 mod 4): the scalar
+# layout, where a vector access would fault (odd C takes it anyway)
+VJP_CS = [1, 2, 3, 4, 5, 32, 49, 64]
+VJP_FLOWS = ["smooth", "wide", "out of frame", "batch slice one float in"]
+
+
+def _vjp_inputs(flow, g, B, H, W, C, card):
+    """img/vals and the cotangent's storage for a VJP test: aligned, or a
+    batch slice that starts off every 8-byte boundary."""
+    if flow != "batch slice one float in":
+        return _at_offset((B, H, W, C), 0, g, card)
+    x = _at_offset((B + 1, H, W, C), 1, g, card)[1:]
+    assert x.is_contiguous() and (C % 2 or x.data_ptr() % 8 != 0)
+    return x
+
+
+@pytest.mark.parametrize("flow", VJP_FLOWS[:3])
+@pytest.mark.parametrize("C", [1, 3, 4, 49])
+def test_splat_grad_dvals_is_the_gather(C, flow):
+    """splat_grad's dvals is the gather of the cotangent at the targets
+    with no mask, term for term: the plain versions agree bit for bit,
+    which is why the dvals-only form runs on the gather's kernels."""
+    g = torch.Generator().manual_seed(300 + C)
+    B, H, W = 2, 37, 45
+    cot = torch.randn(B, H, W, C, generator=g)
+    tx, ty = _flow_targets(flow, g, B, H, W, H, W)
+    dvals, dtx, dty = fastwarp.splat_grad_plain(cot, tx, ty, cot, False)
+    assert dtx is None and dty is None
+    assert (dvals - fastwarp.gather_plain(cot, tx, ty)).abs().max() == 0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [4, 49])
-def test_splat_grad_kernel_matches_plain(card, C):
-    g = torch.Generator(device="cpu").manual_seed(3)
-    B, H, W = 2, 64, 96
-    vals = torch.rand(B, H, W, C, generator=g).to(card)
-    cot = torch.randn(B, H, W, C, generator=g).to(card)
-    tx, ty = _coords(g, B, H, W, 8.0, card)
+@pytest.mark.parametrize("flow", VJP_FLOWS)
+@pytest.mark.parametrize("C", VJP_CS)
+def test_splat_grad_kernel_matches_plain(card, C, flow):
+    """Both forms: dvals only (the gather's routes) and dvals with dtx/dty
+    (lane groups, 16-byte at C % 4 == 0, 8-byte at even C, where the
+    pointers allow). dvals bit for bit (max abs 0), dtx/dty within
+    1e-4·(1+|ref|); all zero when every target is out of frame."""
+    g = torch.Generator(device="cpu").manual_seed(100 + C)
+    B, H, W = 2, 37, 45
+    vals = _vjp_inputs(flow, g, B, H, W, C, card)
+    cot = (_vjp_inputs(flow, g, B, H, W, C, card) - 0.5) * 4
+    tx, ty = (t.to(card) for t in _flow_targets(flow, g, B, H, W, H, W))
     for coords in (True, False):
+        before = fastwarp.LAUNCHES["splat_grad"]
         got = fastwarp.splat_grad(vals, tx, ty, cot, coords)
         ref = fastwarp.splat_grad_plain(vals, tx, ty, cot, coords)
         torch.cuda.synchronize()
-        assert (got[0] - ref[0]).abs().max().item() <= 1e-5
+        assert fastwarp.LAUNCHES["splat_grad"] == before + 1
+        assert got[0].shape == (B, H, W, C)
+        assert (got[0] - ref[0]).abs().max().item() == 0, coords
         if coords:
             _close(got[1], ref[1])
             _close(got[2], ref[2])
         else:
             assert got[1] is None and got[2] is None
+        if flow == "out of frame":
+            assert not any(x.any() for x in got if x is not None)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask", [True, False])
-def test_gather_grad_kernel_matches_plain(card, mask):
-    g = torch.Generator(device="cpu").manual_seed(4)
-    B, H, W, C = 2, 64, 96, 3
-    img = torch.randn(B, H, W, C, generator=g).to(card)
-    cot = torch.randn(B, H, W, C, generator=g).to(card)
-    sx, sy = _coords(g, B, H, W, 8.0, card)
-    got = fastwarp.gather_grad(img, sx, sy, cot, mask)
-    ref = fastwarp.gather_grad_plain(img, sx, sy, cot, mask)
-    torch.cuda.synchronize()
-    for a, b in zip(got, ref):
-        _close(a, b)
-    dimg, dsx, dsy = fastwarp.gather_grad(img, sx, sy, cot, mask,
-                                          want_coords=False)
-    assert dsx is None and dsy is None
-    _close(dimg, ref[0])
+@pytest.mark.parametrize("flow", VJP_FLOWS)
+@pytest.mark.parametrize("C", VJP_CS)
+def test_gather_grad_kernel_matches_plain(card, C, flow, mask):
+    """Every form — coords only (a thread per pixel at C = 2, 3, else lane
+    groups), dimg with coords, dimg only — on a 37×45 frame sampled on a
+    29×51 grid, within 1e-4·(1+|ref|); asking for nothing launches
+    nothing."""
+    g = torch.Generator(device="cpu").manual_seed(200 + C)
+    B, H, W, Ho, Wo = 2, 37, 45, 29, 51
+    img = (_vjp_inputs(flow, g, B, H, W, C, card) - 0.5) * 2
+    cot = (_at_offset((B, Ho, Wo, C), 1 if flow.endswith("in") else 0, g,
+                      card) - 0.5) * 4
+    sx, sy = (t.to(card) for t in _flow_targets(flow, g, B, H, W, Ho, Wo))
+    for want_img, want_coords in ((False, True), (True, True), (True, False)):
+        before = fastwarp.LAUNCHES["gather_grad"]
+        got = fastwarp.gather_grad(img, sx, sy, cot, mask, want_img,
+                                   want_coords)
+        ref = fastwarp.gather_grad_plain(img, sx, sy, cot, mask, want_img,
+                                         want_coords)
+        torch.cuda.synchronize()
+        assert fastwarp.LAUNCHES["gather_grad"] == before + 1
+        for a, b in zip(got, ref):
+            assert (a is None) == (b is None)
+            if b is not None:
+                _close(a, b)
+        if want_img:
+            assert got[0].shape == (B, H, W, C)
+        if flow == "out of frame":
+            assert not any(x.any() for x in got if x is not None)
+    before = dict(fastwarp.LAUNCHES)
+    assert fastwarp.gather_grad(img, sx, sy, cot, mask, False, False) == \
+        (None, None, None)
+    assert fastwarp.LAUNCHES == before
 
 
 def _grads_on(dev, fn, inputs, cot):

@@ -17,6 +17,8 @@ texture at t = 0.5 its jitted and eager runs differ by 0.048 on 880 pixels
 to 1e-5 relative, so it measures the port, not that conditioning.
 """
 
+import collections
+import contextlib
 import importlib
 import os
 
@@ -39,6 +41,7 @@ from fldrx_torch.api import DEFAULT_NPZ
 from fldrx_torch.bench_inputs import train_batch
 from fldrx_torch.eval import pipeline as tpipe
 from fldrx_torch.model import fldrnet as tf
+from fldrx_torch.ops import fastwarp
 from fldrx_torch.train import losses as tl
 from fldrx_torch.weights import (flatten_params, load_npz, named_leaves,
                                  params_from_numpy, params_to_numpy)
@@ -98,12 +101,40 @@ def train_pair():
     pyr = tpipe.build_pyramid(tframes, tc, tc.S_trn + 1)
     out = tf.forward_train(tp, tc, pyr, tt)
     loss, tm = tl.total_loss(tc, out, ttarget, tframes, tt, params=tp)
-    loss.backward()
+    with _vjp_forms() as forms:
+        loss.backward()
     return {"jm": jm, "jouts": jouts, "jgrads": jflatten(
                 jax.tree.map(np.asarray, jg)),
             "tm": {k: v.detach() for k, v in tm.items()}, "tout": out,
             "tgrads": flatten_params(
-                params_to_numpy(_grad_tree(tp)))}
+                params_to_numpy(_grad_tree(tp))),
+            "vjp_forms": forms}
+
+
+@contextlib.contextmanager
+def _vjp_forms():
+    """Count the backward pass's calls of the VJP kernels' wrappers by
+    form: (kernel, outputs asked for, C, mask)."""
+    forms = collections.Counter()
+    real_g, real_s = fastwarp.gather_grad, fastwarp.splat_grad
+
+    def gather_grad(img, sx, sy, g, mask=False, want_img=True,
+                    want_coords=True):
+        form = "+".join(n for n, w in (("dimg", want_img),
+                                       ("coords", want_coords)) if w)
+        forms[("gather_grad", form, img.shape[-1], mask)] += 1
+        return real_g(img, sx, sy, g, mask, want_img, want_coords)
+
+    def splat_grad(vals, tx, ty, g, coords=True):
+        forms[("splat_grad", "dvals+coords" if coords else "dvals",
+               vals.shape[-1], None)] += 1
+        return real_s(vals, tx, ty, g, coords)
+
+    fastwarp.gather_grad, fastwarp.splat_grad = gather_grad, splat_grad
+    try:
+        yield forms
+    finally:
+        fastwarp.gather_grad, fastwarp.splat_grad = real_g, real_s
 
 
 def test_forward_train_matches_fldrx(train_pair):
@@ -143,6 +174,22 @@ def test_forward_train_validation_crop_matches_fldrx():
     for a, b in zip(ref["out_pyramid"], got["out_pyramid"]):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-4,
                                    rtol=0)
+
+
+def test_backward_vjp_forms(train_pair):
+    """The forms of the VJP kernels one train step asks for (S_trn=2: the
+    synthesis at 3 levels, the feature splats at 2): at each level the z
+    and im_tot warps of the data frames want dsx/dsy only (C = 3, mask
+    on), the flowback warps of t-scaled flows dimg too (C = 2, mask on);
+    the 2 softmax splats per level and the endflow loss's 2 want dvals and
+    dtx/dty (C = 4); the feature splats' flow is detached, so dvals only
+    (C = 49). chip_smoke.py counts the same forms at S_trn=3 on the card."""
+    assert dict(train_pair["vjp_forms"]) == {
+        ("gather_grad", "coords", 3, True): 12,
+        ("gather_grad", "dimg+coords", 2, True): 6,
+        ("splat_grad", "dvals+coords", 4, None): 8,
+        ("splat_grad", "dvals", 49, None): 4,
+    }
 
 
 def test_total_loss_and_metrics_match_fldrx(train_pair):

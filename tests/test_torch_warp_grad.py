@@ -1,7 +1,10 @@
 """The port's differentiable warps held against fldrx's custom VJPs on the
 CPU: `jax.vjp` of fldrx splat_sum_diff, bwarp_diff and softsplat_diff
 against torch.autograd through splat_sum_diff, bwarp_diff and
-softsplat_diff, with random cotangents, B=2, 40×56, C=3 and C=49.
+softsplat_diff, with random cotangents, B=2, 40×56, C from 2 to 49; and
+with only one input requiring grad (the image or the flow), the forms the
+train step runs (`jax.vjp` of the same fldrx function with the other input
+held fixed).
 
 On CPU tensors the port's Functions run the plain versions of the forward
 and backward kernels, and fldrx (no FLDRX_* overrides) runs its exact
@@ -55,7 +58,7 @@ def assert_close(got, ref, atol=1e-5, rtol=0.0):
                                atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("C", [3, 49])
+@pytest.mark.parametrize("C", [2, 3, 4, 49])
 def test_splat_sum_diff_vjp_matches_fldrx(jfw, C):
     """dvals and dflow ≤ 1e-5 abs (measured 0 and ≤ 4e-6); the port's
     Function takes absolute targets xs + flow, so autograd carries dtx to
@@ -77,7 +80,7 @@ def test_splat_sum_diff_vjp_matches_fldrx(jfw, C):
     assert_close(tfl.grad, dflow)
 
 
-@pytest.mark.parametrize("C", [3, 49])
+@pytest.mark.parametrize("C", [2, 3, 4, 49])
 @pytest.mark.parametrize("with_mask", [True, False])
 def test_bwarp_diff_vjp_matches_fldrx(jfw, C, with_mask):
     """dx and dflow ≤ 1e-5 abs (measured ≤ 9e-7 and ≤ 6e-6). fldrx writes
@@ -96,6 +99,114 @@ def test_bwarp_diff_vjp_matches_fldrx(jfw, C, with_mask):
     assert_close(got, out)
     assert_close(tx.grad, dx)
     assert_close(tfl.grad, dflow)
+
+
+@pytest.mark.parametrize("C,wrt", [(4, "vals"), (49, "vals"), (4, "flow"),
+                                   (49, "flow")])
+def test_splat_sum_diff_vjp_one_input_matches_fldrx(jfw, C, wrt):
+    """Only vals requires grad (the feature splats' detached flow: the
+    VJP computes dvals alone) or only the flow (dtx/dty, with dvals unused),
+    against jax.vjp with the other input fixed; ≤ 1e-5 abs."""
+    rng = np.random.RandomState(40 + C)
+    vals = rng.rand(B, H, W, C).astype(np.float32)
+    flow = smooth_flow(rng, 4.0)
+    g = rng.randn(B, H, W, C).astype(np.float32)
+    if wrt == "vals":
+        out, vjp = jax.vjp(lambda v: jfw.splat_sum_diff(v, jnp.asarray(flow)),
+                           jnp.asarray(vals))
+        tv, tfl = leaf(vals), torch.tensor(flow)
+    else:
+        out, vjp = jax.vjp(lambda f: jfw.splat_sum_diff(jnp.asarray(vals), f),
+                           jnp.asarray(flow))
+        tv, tfl = torch.tensor(vals), leaf(flow)
+    (ref,) = vjp(jnp.asarray(g))
+    xs = torch.arange(W, dtype=torch.float32)
+    ys = torch.arange(H, dtype=torch.float32)[:, None]
+    got = fastwarp.splat_sum_diff(tv, xs + tfl[..., 0], ys + tfl[..., 1])
+    got.backward(torch.tensor(g))
+    assert_close(got, out)
+    assert_close(tv.grad if wrt == "vals" else tfl.grad, ref)
+    assert (tfl if wrt == "vals" else tv).grad is None
+
+
+@pytest.mark.parametrize("C", [2, 3])
+@pytest.mark.parametrize("wrt", ["x", "flow"])
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_bwarp_diff_vjp_one_input_matches_fldrx(jfw, C, wrt, with_mask):
+    """Only the flow requires grad (the z and im_tot warps of data frames:
+    the VJP computes dsx/dsy alone) or only the image (dimg alone), against
+    jax.vjp with the other input fixed; ≤ 1e-5 abs."""
+    rng = np.random.RandomState(50 + C)
+    x = rng.randn(B, H, W, C).astype(np.float32)
+    flow = smooth_flow(rng, 4.0)
+    g = rng.randn(B, H, W, C).astype(np.float32)
+    if wrt == "x":
+        out, vjp = jax.vjp(
+            lambda a: jfw.bwarp_diff(a, jnp.asarray(flow), with_mask),
+            jnp.asarray(x))
+        tx, tfl = leaf(x), torch.tensor(flow)
+    else:
+        out, vjp = jax.vjp(
+            lambda f: jfw.bwarp_diff(jnp.asarray(x), f, with_mask),
+            jnp.asarray(flow))
+        tx, tfl = torch.tensor(x), leaf(flow)
+    (ref,) = vjp(jnp.asarray(g))
+    got = fastwarp.bwarp_diff(tx, tfl, with_mask)
+    got.backward(torch.tensor(g))
+    assert_close(got, out)
+    assert_close(tx.grad if wrt == "x" else tfl.grad, ref)
+    assert (tfl if wrt == "x" else tx).grad is None
+
+
+@pytest.mark.parametrize("needs,want", [
+    ((True, True), (True, True)), ((False, True), (False, True)),
+    ((True, False), (True, False))])
+def test_gather_fn_asks_for_the_grads_needed(monkeypatch, needs, want):
+    """_GatherFn's backward asks gather_grad for dimg only when the image
+    requires grad and for dsx/dsy only when the coords do: the z and
+    im_tot warps of data frames take the coords-only form."""
+    seen = []
+    real = fastwarp.gather_grad
+
+    def spy(img, sx, sy, g, mask=False, want_img=True, want_coords=True):
+        seen.append((want_img, want_coords, mask))
+        return real(img, sx, sy, g, mask, want_img, want_coords)
+
+    monkeypatch.setattr(fastwarp, "gather_grad", spy)
+    rng = np.random.RandomState(60)
+    img = torch.tensor(rng.randn(B, H, W, 3).astype(np.float32))
+    sx = torch.tensor(rng.rand(B, H, W).astype(np.float32) * W)
+    sy = torch.tensor(rng.rand(B, H, W).astype(np.float32) * H)
+    img.requires_grad_(needs[0])
+    sx.requires_grad_(needs[1])
+    sy.requires_grad_(needs[1])
+    fastwarp.gather_diff(img, sx, sy, True).sum().backward()
+    assert seen == [(*want, True)]
+
+
+@pytest.mark.parametrize("needs,coords", [
+    ((True, True), True), ((True, False), False), ((False, True), True)])
+def test_splat_fn_asks_for_the_grads_needed(monkeypatch, needs, coords):
+    """_SplatFn's backward asks splat_grad for dtx/dty only when the
+    targets require grad: the feature splats (detached flow) take the
+    dvals-only form."""
+    seen = []
+    real = fastwarp.splat_grad
+
+    def spy(vals, tx, ty, g, coords=True):
+        seen.append(coords)
+        return real(vals, tx, ty, g, coords)
+
+    monkeypatch.setattr(fastwarp, "splat_grad", spy)
+    rng = np.random.RandomState(61)
+    vals = torch.tensor(rng.rand(B, H, W, 4).astype(np.float32))
+    tx = torch.tensor(rng.rand(B, H, W).astype(np.float32) * W)
+    ty = torch.tensor(rng.rand(B, H, W).astype(np.float32) * H)
+    vals.requires_grad_(needs[0])
+    tx.requires_grad_(needs[1])
+    ty.requires_grad_(needs[1])
+    fastwarp.splat_sum_diff(vals, tx, ty).sum().backward()
+    assert seen == [coords]
 
 
 @pytest.mark.parametrize("C", [3, 48])
