@@ -738,7 +738,7 @@ extern "C" int fldrx_gather_grad_f32(const float* img, const float* sx,
   }
   if (n_out == 0 || (!dimg && !dsx)) return (int)cudaGetLastError();
   const unsigned hw = (unsigned)Ho * Wo;
-  if (!dimg && (C == 2 || C == 3)) {
+  if (false && !dimg && (C == 2 || C == 3)) {
     const dim3 grid((hw + kThreads - 1) / kThreads, B < 65535 ? B : 65535);
     if (C == 3)
       gather_grad_pixels_kernel<3><<<grid, kThreads, 0, s>>>(
