@@ -531,13 +531,16 @@ def splat_grad_row(peaks, g, label, B, H, W, C, coords, coarse, px):
             align_corners=False)))
 
 
-def warp_rows(peaks):
-    """Phase 2 for the warp kernels: the gather and the splat at
-    GATHER_ROWS and SPLAT_ROWS (the gather within 1e-5, expected 0; the
-    splat within 1e-4·(1+|ref|)), gather_grad and splat_grad at
-    GATHER_GRAD_ROWS and SPLAT_GRAD_ROWS; each against its plain version,
-    timed through the wrapper, as the bare launch, as the plain version
-    and as the library call."""
+WARP_KERNELS = ("gather", "splat", "gather_grad", "splat_grad")
+
+
+def warp_rows(peaks, kernels=WARP_KERNELS):
+    """Phase 2 for the warp kernels (all of WARP_KERNELS, or those named):
+    the gather and the splat at GATHER_ROWS and SPLAT_ROWS (the gather
+    within 1e-5, expected 0; the splat within 1e-4·(1+|ref|)), gather_grad
+    and splat_grad at GATHER_GRAD_ROWS and SPLAT_GRAD_ROWS; each against
+    its plain version, timed through the wrapper, as the bare launch, as
+    the plain version and as the library call."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -546,6 +549,8 @@ def warp_rows(peaks):
                             ("splat", splat_row, SPLAT_ROWS),
                             ("gather_grad", gather_grad_row, GATHER_GRAD_ROWS),
                             ("splat_grad", splat_grad_row, SPLAT_GRAD_ROWS)):
+        if name not in kernels:
+            continue
         rows[name] = [fn(peaks, g, *r) for r in table]
         torch.cuda.empty_cache()
     for name, rs in rows.items():

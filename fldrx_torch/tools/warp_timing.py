@@ -1,16 +1,18 @@
-"""The gather and splat rows of chip_smoke.py phase 2 (each checked against
-its plain version, then timed through the wrapper, as the bare launch, as
-the plain version and as the library call) for the fldrx_torch package of
-any checkout, so that two checkouts can be timed in one run on one card:
+"""The warp kernels' rows of chip_smoke.py phase 2 — the gather, the splat,
+gather_grad and splat_grad, each checked against its plain version, then
+timed through the wrapper, as the bare launch, as the plain version and as
+the library call — for the fldrx_torch package of any checkout, so that
+two checkouts can be timed in one run on one card:
 
     python fldrx_torch/tools/warp_timing.py [--root DIR] [--out FILE]
+        [--kernels gather,splat,gather_grad,splat_grad]
 
 --root is the checkout whose fldrx_torch is timed (default: this one); its
 gather and splat entry points must take the `route` argument that
-`fastwarp._route` picks. The rows and their timing are always this
-checkout's chip_smoke.py. Prints
-one JSON line: the card, the root and the rows; --out also writes it to a
-file. Needs a GPU.
+`fastwarp._route` picks. --kernels times only the kernels named. The rows
+and their timing are always this checkout's chip_smoke.py. Prints one JSON
+line: the card, the root and the rows; --out also writes it to a file.
+Needs a GPU.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=REPO)
     ap.add_argument("--out")
+    ap.add_argument("--kernels", default="gather,splat,gather_grad,splat_grad")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -45,7 +48,8 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     card = smoke.card_line()
-    rows = smoke.warp_rows(smoke.peaks_for(card)[1])
+    rows = smoke.warp_rows(smoke.peaks_for(card)[1],
+                           tuple(args.kernels.split(",")))
     line = json.dumps({"card": card, "root": root, "rows": rows})
     print(line)
     if args.out:
