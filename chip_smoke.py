@@ -260,14 +260,11 @@ def check_kernels(peaks):
         raise AssertionError(f"splat kernels without RED, with ATOM or "
                              f"without 16-byte RED on the vector route: "
                              f"{fwd}")
-    # gather_grad's dimg adds too: each instantiation (<4>, <2>, <1>:
-    # floats per unit) of the kernels that add into dimg has RED, the <4>
-    # ones 16-byte RED, and none ATOM
-    bwd = {k: v for k, v in sass_atomics(_build.library_path("warp"),
-                                         "gather_grad_").items()
-           if "pixels" not in k}
+    # gather_grad's dimg adds too: each lane-group instantiation (<4>, <2>,
+    # <1>: floats per unit) has RED, the <4> one 16-byte RED, and none ATOM
+    bwd = sass_atomics(_build.library_path("warp"), "gather_grad_lanes")
     print(f"gather_grad SASS: {bwd}", flush=True)
-    if len(bwd) != 6 or any(v["ATOM"] or not v["RED"]
+    if len(bwd) != 3 or any(v["ATOM"] or not v["RED"]
                             or ("ILi4E" in k) != (v["RED.F32x4"] == v["RED"])
                             for k, v in bwd.items()):
         raise AssertionError(f"gather_grad kernels without RED, with ATOM or "

@@ -122,7 +122,6 @@
 // Either gather_grad output is skipped when its pointer is null; the entry
 // point zeroes dimg.
 
-#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -407,20 +406,16 @@ __device__ __forceinline__ void store_v(float* p, const float (&x)[V]) {
 }
 
 template <int V>
-__device__ __forceinline__ void red_v(float* p, const float (&x)[V]) {
+__device__ __forceinline__ void red_v(float* p, const float (&x)[V], float w) {
   if constexpr (V == 4)
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
+    atomicAdd(reinterpret_cast<float4*>(p),
+              make_float4(__fmul_rn(x[0], w), __fmul_rn(x[1], w),
+                          __fmul_rn(x[2], w), __fmul_rn(x[3], w)));
   else if constexpr (V == 2)
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(x[0], x[1]));
+    atomicAdd(reinterpret_cast<float2*>(p),
+              make_float2(__fmul_rn(x[0], w), __fmul_rn(x[1], w)));
   else
-    atomicAdd(p, x[0]);
-}
-
-template <int V>
-__device__ __forceinline__ void scale_v(const float (&x)[V], float w,
-                                        float (&y)[V]) {
-#pragma unroll
-  for (int k = 0; k < V; ++k) y[k] = __fmul_rn(x[k], w);
+    atomicAdd(p, __fmul_rn(x[0], w));
 }
 
 // The sum of v over a lane group of 2^lg lanes, in every lane of it; all
@@ -515,15 +510,10 @@ __global__ void gather_grad_lanes_kernel(const float* __restrict__ img,
           float gm[V];
           load_v<V>(gp + c, true, gm);
           if (dimg) {
-            float a[V];
-            scale_v<V>(gm, t.w00, a);
-            if (t.v00) red_v<V>(dimg + at + c, a);
-            scale_v<V>(gm, t.w01, a);
-            if (t.v01) red_v<V>(dimg + at + C + c, a);
-            scale_v<V>(gm, t.w10, a);
-            if (t.v10) red_v<V>(dimg + at + row + c, a);
-            scale_v<V>(gm, t.w11, a);
-            if (t.v11) red_v<V>(dimg + at + row + C + c, a);
+            if (t.v00) red_v<V>(dimg + at + c, gm, t.w00);
+            if (t.v01) red_v<V>(dimg + at + C + c, gm, t.w01);
+            if (t.v10) red_v<V>(dimg + at + row + c, gm, t.w10);
+            if (t.v11) red_v<V>(dimg + at + row + C + c, gm, t.w11);
           }
           if (coords) {
             float i00[V], i01[V], i10[V], i11[V];
@@ -549,95 +539,6 @@ __global__ void gather_grad_lanes_kernel(const float* __restrict__ img,
         dsx[pix] = ax;
         dsy[pix] = ay;
       }
-    }
-  }
-}
-
-// gather_grad with dimg where one unit of V floats covers a pixel (C == V):
-// a thread per output pixel (frame blockIdx.y). A pixel whose left
-// neighbour in the warp sits one cell to its left in the same row shares
-// two corners with it: it takes the neighbour's right-corner adds (01, 11)
-// into its own left corners (00, 10), and the neighbour skips them, so on
-// a smooth flow a pixel makes about two reductions instead of four.
-template <int V>
-__global__ void gather_grad_pairs_kernel(const float* __restrict__ img,
-                                         const float* __restrict__ sx,
-                                         const float* __restrict__ sy,
-                                         const float* __restrict__ g,
-                                         float* __restrict__ dimg,
-                                         float* __restrict__ dsx,
-                                         float* __restrict__ dsy, int B,
-                                         int H, int W, int Ho, int Wo,
-                                         int mask) {
-  constexpr int C = V;
-  const unsigned hw = (unsigned)Ho * Wo;
-  const unsigned i = blockIdx.x * kThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const unsigned full = 0xffffffffu;
-  for (int b = blockIdx.y; b < B; b += gridDim.y) {
-    const int64_t pix = (int64_t)b * hw + i;
-    bool on = false;
-    Bilinear t{};
-    float gm[V] = {}, r01[V] = {}, r11[V] = {};
-    int cx = INT_MIN, cy = INT_MIN;       // this pixel's cell; none if off
-    if (i < hw) {
-      const float px = sx[pix], py = sy[pix];
-      on = !mask || keep_of(px, py, W, H) != 0.f;   // keep = 0: no adds
-      if (on) {
-        t = bilinear(px, py, W, H);
-        load_v<V>(g + pix * C, true, gm);
-        scale_v<V>(gm, t.w01, r01);
-        scale_v<V>(gm, t.w11, r11);
-        cx = t.x0;
-        cy = t.y0;
-      }
-    }
-    const int lx = __shfl_up_sync(full, cx, 1), ly = __shfl_up_sync(full, cy, 1);
-    const bool take = on && lane > 0 && ly == cy && lx == cx - 1;
-    const bool given = __shfl_down_sync(full, (int)take, 1) && lane < 31;
-    float l01[V], l11[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      l01[k] = __shfl_up_sync(full, r01[k], 1);
-      l11[k] = __shfl_up_sync(full, r11[k], 1);
-    }
-    if (on) {
-      const int64_t at = ((int64_t)b * H * W + (int64_t)t.y0 * W + t.x0) * C;
-      const int64_t row = (int64_t)W * C;
-      float a00[V], a10[V];
-      scale_v<V>(gm, t.w00, a00);
-      scale_v<V>(gm, t.w10, a10);
-      if (take) {
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-          a00[k] = __fadd_rn(a00[k], l01[k]);
-          a10[k] = __fadd_rn(a10[k], l11[k]);
-        }
-      }
-      if (t.v00) red_v<V>(dimg + at, a00);
-      if (t.v10) red_v<V>(dimg + at + row, a10);
-      if (!given) {
-        if (t.v01) red_v<V>(dimg + at + C, r01);
-        if (t.v11) red_v<V>(dimg + at + row + C, r11);
-      }
-      if (dsx) {
-        float i00[V], i01[V], i10[V], i11[V];
-        load_v<V>(img + at, t.v00, i00);
-        load_v<V>(img + at + C, t.v01, i01);
-        load_v<V>(img + at + row, t.v10, i10);
-        load_v<V>(img + at + row + C, t.v11, i11);
-        float ax = 0.f, ay = 0.f;
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-          ax += gm[k] * d_along(i00[k], i01[k], i10[k], i11[k], t.gy, t.fy);
-          ay += gm[k] * d_along(i00[k], i10[k], i01[k], i11[k], t.gx, t.fx);
-        }
-        dsx[pix] = ax;
-        dsy[pix] = ay;
-      }
-    } else if (dsx && i < hw) {
-      dsx[pix] = 0.f;
-      dsy[pix] = 0.f;
     }
   }
 }
@@ -850,18 +751,6 @@ extern "C" int fldrx_gather_grad_f32(const float* img, const float* sx,
   const int V = vec_width(C, img, g, dimg ? dimg : img);
   const int lg = group_log2(C / V);
   const dim3 grid = grid_lanes(hw, lg, B);
-  if (dimg && C == V) {
-    if (V == 4)
-      gather_grad_pairs_kernel<4><<<grid, kThreads, 0, s>>>(
-          img, sx, sy, g, dimg, dsx, dsy, B, H, W, Ho, Wo, mask);
-    else if (V == 2)
-      gather_grad_pairs_kernel<2><<<grid, kThreads, 0, s>>>(
-          img, sx, sy, g, dimg, dsx, dsy, B, H, W, Ho, Wo, mask);
-    else
-      gather_grad_pairs_kernel<1><<<grid, kThreads, 0, s>>>(
-          img, sx, sy, g, dimg, dsx, dsy, B, H, W, Ho, Wo, mask);
-    return (int)cudaGetLastError();
-  }
   if (V == 4)
     gather_grad_lanes_kernel<4><<<grid, kThreads, 0, s>>>(
         img, sx, sy, g, dimg, dsx, dsy, B, H, W, C, Ho, Wo, mask, lg);
