@@ -545,9 +545,7 @@ __global__ void gather_grad_lanes_kernel(const float* __restrict__ img,
 
 // gather_grad, coords only, at C = 2, 3: one thread per output pixel; the
 // block stages its run of kThreads·C floats of g in shared memory, loaded
-// with consecutive threads on consecutive floats. Each thread issues its
-// coordinate and tap loads before the block's g loads, so that their
-// latencies overlap.
+// with consecutive threads on consecutive floats.
 template <int C>
 __global__ void gather_grad_pixels_kernel(const float* __restrict__ img,
                                           const float* __restrict__ sx,
@@ -562,38 +560,27 @@ __global__ void gather_grad_pixels_kernel(const float* __restrict__ img,
   const unsigned i = p0 + threadIdx.x;
   const unsigned n = (hw - p0 < kThreads ? hw - p0 : kThreads) * C;
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
-    const int64_t pix = (int64_t)b * hw + i;
-    bool on = false;
-    Bilinear t{};
-    float i00[C] = {}, i01[C] = {}, i10[C] = {}, i11[C] = {};
+    const float* gb = g + ((int64_t)b * hw + p0) * C;
+    for (unsigned j = threadIdx.x; j < n; j += kThreads) tile[j] = __ldg(gb + j);
+    __syncthreads();
     if (i < hw) {
+      const int64_t pix = (int64_t)b * hw + i;
       const float px = sx[pix], py = sy[pix];
-      on = !mask || keep_of(px, py, W, H) != 0.f;   // keep = 0: dsx = 0
-      if (on) {
-        t = bilinear(px, py, W, H);
+      float ax = 0.f, ay = 0.f;
+      if (!mask || keep_of(px, py, W, H) != 0.f) {
+        const Bilinear t = bilinear(px, py, W, H);
         const float* r0 =
             img + ((int64_t)b * H * W + (int64_t)t.y0 * W + t.x0) * C;
         const float* r1 = r0 + (int64_t)W * C;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          i00[c] = t.v00 ? __ldg(r0 + c) : 0.f;
-          i01[c] = t.v01 ? __ldg(r0 + C + c) : 0.f;
-          i10[c] = t.v10 ? __ldg(r1 + c) : 0.f;
-          i11[c] = t.v11 ? __ldg(r1 + C + c) : 0.f;
-        }
-      }
-    }
-    const float* gb = g + ((int64_t)b * hw + p0) * C;
-    for (unsigned j = threadIdx.x; j < n; j += kThreads) tile[j] = __ldg(gb + j);
-    __syncthreads();
-    if (i < hw) {
-      float ax = 0.f, ay = 0.f;
-      if (on) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
+          const float i00 = t.v00 ? __ldg(r0 + c) : 0.f;
+          const float i01 = t.v01 ? __ldg(r0 + C + c) : 0.f;
+          const float i10 = t.v10 ? __ldg(r1 + c) : 0.f;
+          const float i11 = t.v11 ? __ldg(r1 + C + c) : 0.f;
           const float gm = tile[threadIdx.x * C + c];
-          ax += gm * d_along(i00[c], i01[c], i10[c], i11[c], t.gy, t.fy);
-          ay += gm * d_along(i00[c], i10[c], i01[c], i11[c], t.gx, t.fx);
+          ax += gm * d_along(i00, i01, i10, i11, t.gy, t.fy);
+          ay += gm * d_along(i00, i10, i01, i11, t.gx, t.fx);
         }
       }
       dsx[pix] = ax;
