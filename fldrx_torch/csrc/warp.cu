@@ -109,10 +109,16 @@
 //     frames): no atomics, a dot product over C per pixel. At C = 2, 3 one
 //     thread per pixel, the block's run of g staged through shared memory
 //     with consecutive threads on consecutive floats (as the gather's
-//     stores); at other C lane groups.
+//     stores); chosen by measurement against lane groups, which were
+//     slower at C = 3 (PERF.md, PR 6); at other C lane groups. Its C = 3
+//     tap loads are the forward gather's and bound it the same way.
 //   dimg (the flowback gathers, C = 2, which warp a flow): lane groups, a
 //     lane on V channels, every add a reduction whose result is unused
-//     (RED), V floats wide.
+//     (RED), V floats wide: at C = 2 one float2 RED per corner, chosen by
+//     measurement against two scalar ones. Merging a pixel's right-corner
+//     adds into its right neighbour's left-corner adds where they hit the
+//     same cells (half the reductions on a smooth flow) was measured and
+//     did not pay.
 // Lane groups: a pixel's C/V units of V channels (V = 4, or 2, where C and
 // the pointers allow 16- or 8-byte accesses, else 1) spread over L lanes,
 // L the power of two at or above C/V, at most 32, so that groups tile a
