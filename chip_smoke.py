@@ -455,9 +455,8 @@ def gather_grad_row(peaks, g, label, B, H, W, C, mask, want_img, offset,
         raise AssertionError(f"gather_grad {label} disagrees with its plain "
                              f"version: max abs {errs}")
     # dimg is zeroed before each bare launch, outside the timed window, as
-    # the step's is: adds into a buffer left non-zero run slower (PERF.md,
-    # PR 6); the entry point zeroes it again inside (before PR 6 it did
-    # not)
+    # the step's is (an entry point that does not zero it would otherwise
+    # add into the last launch's sums); one that does zeroes it again
     dimg = torch.zeros_like(img) if want_img else None
     launch = bare_launch("fldrx_gather_grad_f32", img, sx, sy, cot, dimg,
                          torch.empty_like(sx), torch.empty_like(sy), B, H, W,

@@ -110,7 +110,7 @@
 //     thread per pixel, the block's run of g staged through shared memory
 //     with consecutive threads on consecutive floats (as the gather's
 //     stores); chosen by measurement against lane groups, which were
-//     slower at C = 3 (PERF.md, PR 6); at other C lane groups. Its C = 3
+//     slower at C = 3 (PERF.md's kernel table); at other C lane groups. Its C = 3
 //     tap loads are the forward gather's and bound it the same way.
 //   dimg (the flowback gathers, C = 2, which warp a flow): lane groups, a
 //     lane on V channels, every add a reduction whose result is unused
