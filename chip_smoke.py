@@ -33,13 +33,17 @@ script exits non-zero:
      64→32, enc3 288×512 128→64, dec2 192→64, dec3 256→96) on random dense
      weights and at enc1 on the checkpoint's repacked weights, against
      float32 F.conv2d (≤ 2e-2 max abs, ≤ 1e-2 relative L2), timed through
-     the wrapper and as the bare launch; the teacher's correlation (dec2
-     8×128×128 C=32, dec3 8×64×64 C=64); the interleave of the synthesis's
-     u-planes (1×4×576×12288 f32, the padded 4K frame) and the
+     the wrapper and as the bare launch; the teacher's correlation at its
+     five cost volumes (CORR_ROWS: dec2 8×128×128 C=32 to dec6 8×8×8
+     C=196; the bare launch also timed on the device alone, queued behind
+     a sleep, and its kernels' registers and spills printed); the
+     interleave of the synthesis's u-planes (1×4×576×12288 f32, the
+     padded 4K frame) and the
      deinterleave, which no path launches (1×2304×12288 f32, bit for bit
      and through the round trip). Each against its plain version on the
      same inputs (the gather within 1e-5, splat_grad's dvals bit for bit,
-     the splat and the other VJP outputs within 1e-4·(1+|ref|)), with the
+     the splat and the other VJP outputs within 1e-4·(1+|ref|), the
+     correlation within 1e-5·(1+|ref|)), with the
      median time of 20 launches beside the plain version's, the PyTorch
      library call's (F.grid_sample for the gather and for splat_grad's
      dvals alone, index_add_ for the splat, grid_sampler_2d_backward with
@@ -160,6 +164,26 @@ def median_ms(fn, n: int = 20, setup=None) -> float:
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def queued_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device ms per run of fn: n runs queued behind a sleep kernel, so the
+    host's launch time between them does not show; the median of reps."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / n)
     return float(np.median(times))
 
 
@@ -307,16 +331,16 @@ def smooth_targets(g, B, H, W, coarse, px):
     return xs + flow[..., 0], ys + flow[..., 1]
 
 
-def bare_launch(fn: str, *args):
-    """The C entry point `fn` of the warp library alone on fixed buffers:
-    a tensor passes its data pointer, None a null pointer, an int itself;
-    the current stream goes last."""
+def bare_launch(fn: str, *args, lib: str = "warp"):
+    """The C entry point `fn` of a library (csrc/<lib>.cu) alone on fixed
+    buffers: a tensor passes its data pointer, None a null pointer, an int
+    itself; the current stream goes last."""
     import torch
 
     from fldrx_torch.ops import _build
 
     vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    f = getattr(_build.library("warp"), fn)
+    f = getattr(_build.library(lib), fn)
     stream = torch.cuda.current_stream().cuda_stream
     return lambda: _build.check(f(*vals, stream), fn)
 
@@ -771,53 +795,115 @@ def check_deinterleave(dev, peaks, results):
           flush=True)
 
 
-def check_teacher_kernels(dev, peaks, results):
-    """Phase 2 at the teacher's shapes on the training recipe's batch (8
-    pairs of 512×512): the correlation at its two largest cost volumes,
-    dec2 (128×128, C=32) and dec3 (64×64, C=64), where no single PyTorch
-    call computes the 81-channel volume, so there is no library yardstick
-    (the gather of dec2's warp is a row of warp_rows)."""
+# The correlation at the teacher's five cost volumes on the training
+# recipe's batch (8 pairs of 512×512): (label, B, H, W, C), the extractor
+# widths of dec2 (128×128) to dec6 (8×8); a teacher call launches each twice.
+CORR_ROWS = (
+    ("dec2", 8, 128, 128, 32),
+    ("dec3", 8, 64, 64, 64),
+    ("dec4", 8, 32, 32, 96),
+    ("dec5", 8, 16, 16, 128),
+    ("dec6", 8, 8, 8, 196),
+)
+
+
+def resource_usage(lib: str, kernel: str) -> dict:
+    """For each function of a built library whose mangled name holds
+    `kernel`: its registers, stack and local (spill) bytes a thread, by
+    the toolkit's cuobjdump; a template's arguments are kept as <…>."""
+    import re
+
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    out = subprocess.run([os.path.join(home, "bin", "cuobjdump"),
+                          "-res-usage", lib], capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    usage, fn = {}, None
+    for ln in out.splitlines():
+        ln = ln.strip()
+        if ln.startswith("Function "):
+            name = ln[len("Function "):].rstrip(":")
+            fn = None
+            if kernel in name:
+                args = re.findall(r"Li(\d+)E", name.split(kernel, 1)[1])
+                fn = kernel + (f"<{','.join(args)}>" if args else "")
+        elif fn and ln.startswith("REG:"):
+            vals = dict(w.split(":", 1) for w in ln.split() if ":" in w)
+            usage[fn] = {k: int(vals[k]) for k in ("REG", "STACK", "LOCAL")}
+            fn = None
+    return usage
+
+
+def correlation_row(peaks, g, label, B, H, W, C):
+    """The correlation at one volume: against its plain version (1e-5·(1 +
+    |ref|)), the bare launch equal to the wrapper's output bit for bit;
+    timed through the wrapper, as the bare launch (per call, and on the
+    device alone: queued_ms) and as the plain version."""
     import torch
 
     from fldrx_torch.ops import correlation
 
-    g = torch.Generator(device=dev).manual_seed(2)
-    rows = []
-    for (B, H, W, C) in ((8, 128, 128, 32), (8, 64, 64, 64)):
-        f1 = torch.randn(B, H, W, C, device=dev, generator=g)
-        f2 = torch.randn(B, H, W, C, device=dev, generator=g)
-        got = correlation.correlation(f1, f2)
-        ref = correlation.correlation_cost_volume(f1, f2)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        if not excess(got, ref, 1e-5) <= 0:
-            raise AssertionError(f"correlation {B}x{H}x{W}x{C} disagrees "
-                                 f"with its plain version: max abs {err}")
-        px = B * H * W
-        b, by = bound_ms(peaks, 4 * (2 * px * C + 81 * px),
-                         81 * px * (2 * C + 1), peaks[2])
-        rows.append(dict(
-            ms=median_ms(lambda: correlation.correlation(f1, f2)),
-            plain_ms=median_ms(
-                lambda: correlation.correlation_cost_volume(f1, f2)),
-            bound_ms=b, bound_by=by, library_ms=None, max_abs_err=err,
-            shape=f"f1, f2 {B}x{H}x{W}x{C} f32 -> 81"))
-        del f1, f2, got, ref
-    results["correlation"] = dict(
-        name="correlation", route="cuda",
-        source="fldrx_torch/csrc/correlation.cu",
-        replaces="fldrx/ops/correlation.py:62",
-        library_call="none: no single PyTorch call computes the volume",
-        tolerance="1e-5*(1+|ref|)", **rows[0])
-    results["correlation"]["max_abs_err"] = max(r["max_abs_err"]
-                                                 for r in rows)
-    results["correlation"]["checks"] = rows[1:]
+    f1 = torch.randn(B, H, W, C, device="cuda", generator=g)
+    f2 = torch.randn(B, H, W, C, device="cuda", generator=g)
+    got = correlation.correlation(f1, f2)
+    ref = correlation.correlation_cost_volume(f1, f2)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    if not excess(got, ref, 1e-5) <= 0:
+        raise AssertionError(f"correlation {label} {B}x{H}x{W}x{C} "
+                             f"disagrees with its plain version: max abs "
+                             f"{err}")
+    out = torch.empty_like(ref)
+    bare = bare_launch("fldrx_correlation_f32", f1, f2, out, B, H, W, C,
+                       lib="correlation")
+    bare()
+    torch.cuda.synchronize()
+    if not torch.equal(out, got):
+        raise AssertionError(f"correlation {label}: the bare launch differs "
+                             "from the wrapper's")
+    px = B * H * W
+    b, by = bound_ms(peaks, 4 * (2 * px * C + 81 * px),
+                     81 * px * (2 * C + 1), peaks[2])
+    return dict(
+        ms=median_ms(lambda: correlation.correlation(f1, f2)),
+        kernel_ms=median_ms(bare), device_ms=queued_ms(bare),
+        plain_ms=median_ms(
+            lambda: correlation.correlation_cost_volume(f1, f2)),
+        bound_ms=b, bound_by=by, library_ms=None, max_abs_err=err,
+        shape=f"{label} f1, f2 {B}x{H}x{W}x{C} f32 -> 81")
+
+
+def correlation_rows(peaks):
+    """Phase 2 for the correlation: every row of CORR_ROWS, and the
+    registers and spills of the kernels built (there is no single PyTorch
+    call that computes the 81-channel volume, so no library yardstick)."""
+    import torch
+
+    from fldrx_torch.ops import _build
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = [correlation_row(peaks, g, *r) for r in CORR_ROWS]
     torch.cuda.empty_cache()
+    usage = resource_usage(_build.library_path("correlation"),
+                           "correlation_kernel")
+    for k, v in usage.items():
+        print(f"  {k}: {v['REG']} registers, {v['STACK']} bytes stack, "
+              f"{v['LOCAL']} bytes local (spills)", flush=True)
     for r in rows:
         print(f"kernel correlation: err {r['max_abs_err']:.3g}, "
-              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library: none, "
-              f"bound {r['bound_ms']:.4f} by {r['bound_by']}) at "
+              f"{r['ms']:.4f} ms (bare {r['kernel_ms']:.4f}, device "
+              f"{r['device_ms']:.4f}; plain {r['plain_ms']:.3f}, library: "
+              f"none, bound {r['bound_ms']:.4f} by {r['bound_by']}) at "
               f"{r['shape']}", flush=True)
+    # the top-level numbers are dec2's, max_abs_err the largest of all rows
+    return dict(name="correlation", route="cuda",
+                source="fldrx_torch/csrc/correlation.cu",
+                replaces="fldrx/ops/correlation.py:62",
+                library_call="none: no single PyTorch call computes the "
+                             "volume",
+                tolerance="1e-5*(1+|ref|)",
+                **dict(rows[0], max_abs_err=max(r["max_abs_err"]
+                                                for r in rows)),
+                shapes=rows[1:], resources=usage)
 
 
 # ---------------------------------------------------------------------------
@@ -1378,7 +1464,7 @@ def main() -> int:
 
     results = phase("2 kernels", check_kernels, peaks)
     phase("2 conv3x3", check_conv3x3, "cuda", peaks, results)
-    phase("2 teacher kernels", check_teacher_kernels, "cuda", peaks, results)
+    results["correlation"] = phase("2 correlation", correlation_rows, peaks)
     phase("2 interleave", check_interleave, "cuda", peaks, results)
     phase("2 deinterleave", check_deinterleave, "cuda", peaks, results)
     phase("3 inference held", main_path_held)

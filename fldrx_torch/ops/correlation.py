@@ -8,9 +8,11 @@ of f1 · f2[y+dy, x+dx] with zeros outside the frame, dy, dx in ±4.
 `correlation(f1, f2)` dispatches on the tensors' device: a CUDA tensor
 launches the kernel in csrc/correlation.cu (built at first use, see
 ops/_build.py) or raises; a CPU tensor takes the plain version. The kernel
-sums over C with fmaf in channel order and multiplies by 1/C, as fldrx's
-TPU kernel does, where the plain version takes torch's mean: the two agree
-to about 1e-6 relative. `LAUNCHES` counts kernel launches.
+picks its tile and its number of channel groups from the frame, sums each
+group's channels with fmaf in channel order, adds the groups in a fixed
+order and multiplies by 1/C, where the plain version takes torch's mean:
+the two agree to about 1e-6 relative. One launch per call; `LAUNCHES`
+counts them.
 
 Gradients: fldrx's kernel is forward only and its VJP differentiates the
 plain formula (`_corr_vjp_bwd`). `correlation_diff` does the same: kernel

@@ -27,8 +27,9 @@ peak memory it reached) and the other direction whole, then one call under
 Each prints one JSON line with the stage times, the device's busy time (the
 sum of kernel self times) and idle share over the profiled wall time, the
 profiled run's peak memory, the top device kernels, and every kernel of
-csrc/warp.cu (the gather, the splat and their VJPs) with its launches and
-device ms; the full table goes to --out.
+csrc/warp.cu (the gather, the splat and their VJPs) and of
+csrc/correlation.cu with its launches and device ms; the full table goes
+to --out.
 """
 
 from __future__ import annotations
@@ -228,7 +229,9 @@ def main() -> int:
         "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
         "top_kernels": top[:25],
         "warp_kernels": [r for r in top if "namespace)::" in r["name"]
-                         and ("gather" in r["name"] or "splat" in r["name"])]}))
+                         and ("gather" in r["name"] or "splat" in r["name"])],
+        "correlation_kernels": [r for r in top
+                                if "correlation_kernel" in r["name"]]}))
     return 0
 
 

@@ -1,18 +1,20 @@
-"""The warp kernels' rows of chip_smoke.py phase 2 — the gather, the splat,
-gather_grad and splat_grad, each checked against its plain version, then
-timed through the wrapper, as the bare launch, as the plain version and as
-the library call — for the fldrx_torch package of any checkout, so that
-two checkouts can be timed in one run on one card:
+"""The warp kernels' and the correlation's rows of chip_smoke.py phase 2 —
+the gather, the splat, gather_grad, splat_grad and the correlation, each
+checked against its plain version, then timed through the wrapper, as the
+bare launch, as the plain version and as the library call — for the
+fldrx_torch package of any checkout, so that two checkouts can be timed
+in one run on one card:
 
     python fldrx_torch/tools/warp_timing.py [--root DIR] [--out FILE]
-        [--kernels gather,splat,gather_grad,splat_grad]
+        [--kernels gather,splat,gather_grad,splat_grad,correlation]
 
 --root is the checkout whose fldrx_torch is timed (default: this one); its
 gather and splat entry points must take the `route` argument that
-`fastwarp._route` picks. --kernels times only the kernels named. The rows
-and their timing are always this checkout's chip_smoke.py. Prints one JSON
-line: the card, the root and the rows; --out also writes it to a file.
-Needs a GPU.
+`fastwarp._route` picks (the correlation's entry point has kept its
+arguments). --kernels times only the kernels named (default: the four
+warp kernels). The rows and their timing are always this checkout's
+chip_smoke.py. Prints one JSON line: the card, the root and the rows;
+--out also writes it to a file. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -48,8 +50,14 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     card = smoke.card_line()
-    rows = smoke.warp_rows(smoke.peaks_for(card)[1],
-                           tuple(args.kernels.split(",")))
+    peaks = smoke.peaks_for(card)[1]
+    kernels = tuple(args.kernels.split(","))
+    unknown = set(kernels) - set(smoke.WARP_KERNELS) - {"correlation"}
+    if unknown:
+        raise SystemExit(f"warp_timing: unknown kernels {sorted(unknown)}")
+    rows = smoke.warp_rows(peaks, kernels)
+    if "correlation" in kernels:
+        rows["correlation"] = smoke.correlation_rows(peaks)
     line = json.dumps({"card": card, "root": root, "rows": rows})
     print(line)
     if args.out:

@@ -11,17 +11,21 @@ same kernels at the main path's 4K shapes and the training shapes.
 Tolerances: the gather is summed term for term as its plain version (≤
 1e-5, expected 0), and splat_grad's dvals too (max abs 0); sums over
 channels and the atomicAdd accumulations (splat, gather_grad's dimg)
-change order, so those are held at 1e-4·(1 + |ref|); the correlation kernel sums its C products in channel
-order where torch.mean does not, held at 1e-5·(1 + |ref|); the interleave
+change order, so those are held at 1e-4·(1 + |ref|); the correlation
+kernel sums its C products in channel order within each channel group and
+adds the groups in a fixed order, where torch.mean does not, held at
+1e-5·(1 + |ref|); the interleave
 and the deinterleave are permutations, held bit for bit; conv3x3 rounds its
 output to bf16 (one ulp is 1/128 relative), held at 2e-2 max abs and 1e-2
 relative L2 against float32 F.conv2d.
 
-The layout of conv3x3's packed weights, and the route and frame limit the
-gather and splat wrappers pick, are held on the CPU as well.
+The layout of conv3x3's packed weights, the route and frame limit the
+gather and splat wrappers pick, and the correlation geometries that
+tools/corr_geometry.py times, are held on the CPU as well.
 """
 
 import ctypes
+import os
 
 import numpy as np
 import pytest
@@ -123,6 +127,26 @@ def test_warp_frame_limit():
     fastwarp._check_frame("gather", fastwarp.MAX_FRAME_ELEMS)
     with pytest.raises(ValueError, match="at most 2147483647"):
         fastwarp._check_frame("splat", fastwarp.MAX_FRAME_ELEMS + 1)
+
+
+def test_correlation_geometries_are_timed():
+    """tools/corr_geometry.py, which times the correlation kernel's
+    geometries, covers each geometry the entry point launches, and each of
+    its source variants still applies to csrc/correlation.cu."""
+    import re
+
+    from fldrx_torch.tools import corr_geometry
+
+    with open(os.path.join(_build.SRC_DIR, "correlation.cu")) as f:
+        src = f.read()
+    entry = src[src.index('extern "C" int fldrx_correlation_f32'):]
+    picked = {tuple(int(v) for v in m) for m in
+              re.findall(r"launch<(\d+), (\d+), (\d+)>", entry)}
+    assert len(picked) == 3
+    assert picked <= set(corr_geometry.GEOMETRIES)
+    for name, old, new in corr_geometry.VARIANTS:
+        assert src.count(old) == 1, name
+    assert "corr_geometry(" in corr_geometry.entry_point()
 
 
 @pytest.mark.cuda
@@ -423,14 +447,31 @@ def test_kernels_refuse_inputs_that_require_grad(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 24, 40, 32), (1, 13, 37, 12),
-                                   (3, 8, 8, 81)])
-def test_correlation_kernel_matches_plain(card, shape):
-    """Tiles cut by the frame edge (13×37), a C that is no multiple of the
-    kernel's channel chunk (12, 81), and the teacher's widths."""
+@pytest.mark.parametrize("shape,offset", [
+    ((2, 24, 40, 32), 0), ((1, 13, 37, 12), 0), ((3, 8, 8, 81), 0),
+    # the teacher's channel counts, dec2 to dec6, at small frames
+    ((2, 20, 24, 32), 0), ((2, 12, 20, 64), 0), ((2, 10, 12, 96), 0),
+    ((1, 9, 14, 128), 0), ((2, 8, 8, 196), 0),
+    # frames smaller than the ±4 displacement window
+    ((2, 3, 5, 32), 0), ((1, 3, 5, 196), 0),
+    # each geometry the entry point picks (by 16×4 tiles: 512 or more,
+    # 128 or more, fewer) on a frame no multiple of its tile (16×4, 8×2)
+    ((2, 130, 150, 32), 0), ((3, 70, 45, 64), 0), ((2, 19, 37, 96), 0),
+    # scalar staging: a C that is no multiple of 4, inputs one float into
+    # their storage (off every 16-byte boundary)
+    ((2, 17, 21, 7), 0), ((2, 20, 28, 32), 1), ((1, 6, 9, 196), 1),
+])
+def test_correlation_kernel_matches_plain(card, shape, offset):
+    """The kernel against its plain version, one launch per call: tiles
+    cut by the frame edge, channel chunks cut by C, every geometry, the
+    16-byte and the scalar staging and output paths."""
     g = torch.Generator(device="cpu").manual_seed(6)
-    f1 = torch.randn(*shape, generator=g).to(card)
-    f2 = torch.randn(*shape, generator=g).to(card)
+    if offset:
+        f1, f2 = (_at_offset(shape, offset, g, card) for _ in range(2))
+        assert f1.data_ptr() % 16 and f2.data_ptr() % 16
+    else:
+        f1 = torch.randn(*shape, generator=g).to(card)
+        f2 = torch.randn(*shape, generator=g).to(card)
     before = correlation.LAUNCHES["correlation"]
     got = correlation.correlation(f1, f2)
     ref = correlation.correlation_cost_volume(f1, f2)

@@ -64,7 +64,14 @@ def _rel_l2(got, ref):
 
 # -- the cost volume ------------------------------------------------------------
 
-@pytest.mark.parametrize("shape", [(2, 12, 14, 8), (2, 16, 24, 12)])
+@pytest.mark.parametrize("shape", [
+    (2, 12, 14, 8), (2, 16, 24, 12),
+    # the teacher's channel counts, dec2 to dec6, at small frames
+    (2, 9, 10, 32), (1, 8, 9, 64), (1, 6, 7, 96), (1, 5, 6, 128),
+    (2, 5, 5, 196),
+    # a frame smaller than the ±4 displacement window
+    (1, 3, 5, 32),
+])
 def test_cost_volume_matches_fldrx(shape):
     """The plain version against fldrx's XLA formula and against its Pallas
     kernel in interpret mode; `correlation` on CPU tensors is the plain
