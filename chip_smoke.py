@@ -3,7 +3,8 @@
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version at the shapes its paths give it, drives the paths the port
 has — papermodel_test5 ×8 interpolation with a bf16 refine UNet,
-papermodel training, the PWC-Net teacher and the golden-clip evaluation —
+papermodel training, the PWC-Net teacher, the golden-clip evaluation, the
+multi-device evaluation and data-parallel training, and the bench —
 through their entry points (the evaluator's among them), and checks what
 comes out.
 
@@ -53,9 +54,11 @@ script exits non-zero:
   3. inference held: prepare_model() with the real checkpoint on cuda and
      on cpu, interpolate_multi_np at 768×1280 with three t values; the two
      outputs must agree to PSNR ≥ 60 dB.
-  4. inference at full size: bench.py's synthetic 2160×4096 uint8 frames,
-     ×8 (7 t values, chunks of 4, returned as u-planes as in bench.py), one
-     warm-up pair then 3 timed pairs; outputs finite and in [-1.1, 1.1];
+  4. inference at full size, through fldrx_torch.bench's timed pairs (the
+     code path of `python -m fldrx_torch.bench`): bench.py's synthetic
+     2160×4096 uint8 frames, ×8 (7 t values, chunks of 4, returned as
+     u-planes as in bench.py), one warm-up pair then 3 timed pairs;
+     outputs finite and in [-1.1, 1.1];
      frames/s and peak memory. Kernel launch counts are zeroed just before
      the timed pairs and read after; each pair must launch exactly gather
      30, splat 24 and conv3x3 35 times (PER_PAIR).
@@ -102,7 +105,32 @@ script exits non-zero:
      unpacked on the worker threads): the two agree to 1e-4 dB and 1e-5 SSIM,
      and the mean lies within 0.15 dB of 44.139 moved by the 8-bit rounding
      of the targets (each t's float MSE plus the targets' rounding MSE).
-  8. a JSON line for the kernels, the card line, then the last line
+  8. multi-device evaluation and data-parallel training on one card: two
+     shards or two ranks share cuda:0 and run one after the other, so the
+     times measure the split's overhead, not scaling. (a) t-parallel:
+     build_parallel_eval(mode="t") over two shards, bench.py's 4K pair at
+     ×8 in the deploy mix, one warm-up then 2 timed pairs, against the
+     single-device output (PSNR ≥ 60 dB), launches per pair exactly
+     PER_PAIR_T; (b) width-sharded: make_sharded_fast_eval on two slabs,
+     halo 256, the same pair, against the single-device output by fldrx's
+     bulk criteria (BULK: mean abs < 2e-3, share above 5e-2 < 5e-4, and
+     max < 0.3 within SEAM columns of the slab seam, since the whole
+     frame's max varies run to run on the card; the pack's z maps are the
+     strict ones), one flow run per pair and no spill, launches per pair
+     exactly PER_PAIR_SP; then halo 64 on the texture panned 96 px takes
+     the exact fallback once and matches make_sharded_eval within 2e-5
+     mean abs, each printed beside the path's own run-to-run spread;
+     (c) evaluate() on the 4K golden clip as
+     an 8-bit test set through parallel_eval in each mode, each mean
+     within 0.05 dB of 7d's; (d) the data-parallel train step on two gloo
+     ranks (nccl refuses two ranks on one device) from the checkpoint,
+     batch 8 at 512×512 split 4 + 4, S_trn=3, TF32 off, against the
+     single-process step on the same global batch: loss and each metric
+     within 1e-4 relative, every averaged gradient and updated parameter
+     leaf within relative L2 1e-3, the ranks' parameters equal; then 3
+     timed steps per rank.
+  9. `python -m fldrx_torch.bench` once, its JSON line; a JSON line for the
+     kernels, the card line, then the last line
      {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
@@ -126,14 +154,6 @@ PEAKS = {
     "PCIe": (2.0e12, 756e12, 51e12),
     "SXM": (3.35e12, 989e12, 67e12),
 }
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def peaks_for(name: str):
@@ -302,17 +322,24 @@ def check_kernels(peaks):
 # the flowback gathers and the largest feature splats at its 288×512 flow
 # grid; training: level 0 at 8×512×512 and the feature splats at 8×64×64;
 # the teacher: dec2's warp.
+# The sp slab rows: one of two width slabs of the padded 4K frame with its
+# halo of 256 columns each side, 2304×(2048 + 512); the sharded path's
+# gather runs with the kernel's mask off (the mask of the frame's bounds is
+# a separate multiply), and is timed with it on too.
 GATHER_ROWS = (
     ("4K im_tot", 1, 2304, 4096, 3, True, (36, 64), 40.0),
     ("4K flowback", 1, 288, 512, 2, False, (36, 64), 5.0),
     ("training", 8, 512, 512, 3, True, (8, 8), 24.0),
     ("teacher dec2", 8, 128, 128, 32, True, (8, 8), 8.0),
+    ("sp slab im_tot", 1, 2304, 2560, 3, True, (36, 40), 40.0),
+    ("sp slab im_tot as launched", 1, 2304, 2560, 3, False, (36, 40), 40.0),
 )
 SPLAT_ROWS = (
     ("4K level 0", 1, 2304, 4096, 4, (36, 64), 40.0),
     ("4K feature", 1, 288, 512, 49, (36, 64), 5.0),
     ("training level 0", 8, 512, 512, 4, (8, 8), 24.0),
     ("training feature", 8, 64, 64, 49, (8, 8), 3.0),
+    ("sp slab level 0", 1, 2304, 2560, 4, (36, 40), 40.0),
 )
 
 
@@ -1008,51 +1035,40 @@ def main_path_held():
 
 
 def main_path_4k(card: str):
+    """Phase 4: bench.py's run through fldrx_torch.bench's timed pairs."""
     import torch
 
+    from fldrx_torch import bench
     from fldrx_torch.api import prepare_model
     from fldrx_torch.bench_inputs import bench_frames, deploy_config
 
     cfg = deploy_config()
     interp, _, _ = prepare_model(cfg=cfg, device="cuda")
-    H, W = 2160, 4096
+    H, W = bench.H, bench.W
     frames = torch.as_tensor(bench_frames(H, W)).cuda()
-    t_values = list(np.linspace(1 / 8, 1 - 1 / 8, 7))
-    chunk = cfg.t_chunk
-
-    def pair(stats):
-        flow, padded, extras = interp.precompute_flow(frames)
-        for k in range(0, len(t_values), chunk):
-            out = interp.synthesize_multi_at(flow, padded,
-                                             t_values[k:k + chunk], (H, W),
-                                             extras)
-            stats.append(torch.stack([out.amin(), out.amax(),
-                                      (~torch.isfinite(out)).sum().float()]))
-        return out
-
+    ts = bench.t_values()
     stats = []
+
+    def on_chunk(out):
+        stats.append(torch.stack([out.amin(), out.amax(),
+                                  (~torch.isfinite(out)).sum().float()]))
+
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    out = pair(stats)                                   # warm-up
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    if tuple(out.shape) != (chunk - 1, 1, 4, H // 4, W * 3):
-        raise AssertionError(f"output shape {tuple(out.shape)}")
-    iters = 3
-    reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        pair(stats)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    res = bench.timed_pairs(interp, frames, ts, bench.ITERS, on_chunk,
+                            before_timed=reset_launches)
     seen = launches()
+    out, iters = res["out"], bench.ITERS
+    last = len(ts) - (len(ts) - 1) // cfg.t_chunk * cfg.t_chunk
+    if tuple(out.shape) != (last, 1, 4, H // 4, W * 3):
+        raise AssertionError(f"output shape {tuple(out.shape)}")
     st = torch.stack(stats).cpu().numpy()
     lo, hi, nonfinite = float(st[:, 0].min()), float(st[:, 1].max()), \
         int(st[:, 2].sum())
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     print(json.dumps({"phase": "main_path_4k", "hw": [H, W], "multiple": 8,
-                      "pairs": iters, "fps": iters * len(t_values) / dt,
-                      "s_per_pair": dt / iters, "warmup_s": warm_s,
+                      "pairs": iters, "fps": res["fps"],
+                      "s_per_pair": res["s_per_pair"],
+                      "warmup_s": res["warmup_s"],
                       "peak_mem_gib": peak_gb, "launches": seen,
                       "out_min": lo, "out_max": hi, "nonfinite": nonfinite,
                       "card": card}), flush=True)
@@ -1368,7 +1384,8 @@ def golden_clip(card: str):
         "c_s": time.time() - t0, "card": card}), flush=True)
     require_launched(seen, INFER_KERNELS, "golden clip 4K")
     require_counts(seen, PER_PAIR, 1, "golden clip 4K")
-    seen_eval = golden_evaluate(interp, frames, ts, gts, ps_b, card)
+    seen_eval, psnr_7d = golden_evaluate(interp, frames, ts, gts, ps_b,
+                                         card)
     if not abs(mean_a - GOLDEN_PIN_512) < 0.05:
         raise AssertionError(f"golden clip 512x768: {mean_a} dB, pinned "
                              f"{GOLDEN_PIN_512} ± 0.05")
@@ -1378,7 +1395,7 @@ def golden_clip(card: str):
     if not (d_psnr <= 1e-4 and d_ssim <= 1e-5):
         raise AssertionError(f"metrics on the card vs host: {d_psnr} dB, "
                              f"{d_ssim} SSIM")
-    return seen_eval
+    return seen_eval, (frames, ts, gts, psnr_7d)
 
 
 def golden_evaluate(interp, frames, ts, gts, ps_float, card: str):
@@ -1434,7 +1451,310 @@ def golden_evaluate(interp, frames, ts, gts, ps_float, card: str):
     if not abs(on.psnr - expect) < 0.15:
         raise AssertionError(f"evaluate on the 8-bit golden clip: {on.psnr} "
                              f"dB, expected {expect} ± 0.15")
-    return seen
+    return seen, on.psnr
+
+
+# ---------------------------------------------------------------------------
+# phase 8: multi-device evaluation and data-parallel training, on one card
+# ---------------------------------------------------------------------------
+
+# Two shards or two ranks share cuda:0, one after the other: the timings
+# measure the split's overhead, not scaling.
+SHARED = ["cuda:0", "cuda:0"]
+# launches per 4K ×8 pair: mode t on 2 shards synthesises 8 t slots (7
+# padded to a multiple of 2): gather 2 z + 4 per slot, splat 10 feature + 2
+# per slot, conv3x3 5 per slot, and each slot's plain rows through the
+# interleave; mode sp on 2 slabs: splat 10 feature + 2 per t and slab,
+# gather 2 im_tot per t and slab (the strict z maps and the pack's
+# flowbacks launch none), conv3x3 5 per t and slab
+PER_PAIR_T = {"gather": 34, "splat": 26, "conv3x3": 40, "interleave": 8}
+PER_PAIR_SP = {"gather": 28, "splat": 38, "conv3x3": 70}
+# fldrx's bulk criteria for the sharded fast path against the unsharded
+# one (tests/test_parallel.py:92-101). On the card the splat's atomic adds
+# vary a 4K ×8 output's last bits from run to run, and a few pixels cross
+# the 0.999 mask or the splat's empty-target threshold, so that the
+# single-device path and the strict path each differ from themselves by
+# more than 0.3 at a few pixels. So the max bar is held where sharding
+# could err, within SEAM columns of each slab seam, and the whole frame's
+# max is printed beside the single-device path's own run-to-run max.
+BULK = {"mean": 2e-3, "share_above_5e-2": 5e-4, "seam_max": 0.3}
+SEAM = 32
+
+
+def bulk(d, seams=()):
+    """fldrx's bulk statistics of an absolute difference [T, H, W, 3];
+    with seams (slab boundary columns) also the max within SEAM columns
+    of them."""
+    out = {"mean": float(d.mean()),
+           "share_above_5e-2": float((d > 5e-2).float().mean()),
+           "max": float(d.max())}
+    if seams:
+        out["seam_max"] = max(float(d[:, :, c - SEAM:c + SEAM].max())
+                              for c in seams)
+    return out
+
+
+def timed_calls(fn, n: int):
+    """One warm-up call, then n calls with the launch counts zeroed just
+    before them; returns (last output, s per call, launches)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / n, launches()
+
+
+def parallel_eval_4k(card: str):
+    """8a and 8b: bench.py's pair at ×8, deploy mix, through the t-parallel
+    and the width-sharded evaluation on two shards of cuda:0, against the
+    single-device output; then the sharded path's exact spill fallback."""
+    import torch
+
+    from fldrx_torch import bench
+    from fldrx_torch.api import prepare_model
+    from fldrx_torch.bench_inputs import bench_frames, deploy_config, texture
+    from fldrx_torch.ops.metrics import psnr
+    from fldrx_torch.parallel.mesh import make_mesh
+    from fldrx_torch.parallel.spatial import (build_parallel_eval,
+                                              make_sharded_eval,
+                                              make_sharded_fast_eval)
+
+    cfg = deploy_config()
+    interp, _, _ = prepare_model(cfg=cfg, device="cuda")
+    frames = bench_frames(bench.H, bench.W)
+    ts = bench.t_values()
+    ref = torch.as_tensor(interp.interpolate_multi_np(frames, ts)[:, 0])
+    # the single-device path against itself: the card's run-to-run spread
+    spread = bulk((torch.as_tensor(interp.interpolate_multi_np(
+        frames, ts)[:, 0]) - ref).abs())
+    frames_dev = torch.as_tensor(frames).cuda()
+    pairs = 2
+
+    # 8a: t-parallel
+    fn_t = build_parallel_eval(interp.params, cfg, "t", devices=SHARED)
+    out_t, s_t, seen_t = timed_calls(lambda: fn_t(frames_dev, ts), pairs)
+    out_t = out_t.cpu()
+    db = psnr(ref.numpy() + 1.0, out_t.numpy() + 1.0, data_range=2.0)
+    res_t = {"phase": "parallel_t", "hw": [bench.H, bench.W], "shards":
+             SHARED, "pairs": pairs, "psnr_vs_single_db": db,
+             "max_abs": float((out_t - ref).abs().max()),
+             "fps_two_shards_one_card": len(ts) / s_t, "s_per_pair": s_t,
+             "launches_per_pair": {k: v / pairs for k, v in seen_t.items()},
+             "card": card}
+    print(json.dumps(res_t), flush=True)
+    del out_t
+    torch.cuda.empty_cache()
+
+    # 8b: width-sharded, halo 256
+    sp = make_sharded_fast_eval(interp.params, cfg,
+                                make_mesh(SHARED, dp=1, sp=2), halo=256)
+    torch.cuda.reset_peak_memory_stats()
+    out_sp, s_sp, seen_sp = timed_calls(lambda: sp.multi(frames_dev, ts),
+                                        pairs)
+    peak_sp = torch.cuda.max_memory_allocated() / 2 ** 30
+    counters = dict(sp.counters)
+    d = bulk((out_sp.cpu() - ref).abs(), seams=(bench.W // 2,))
+    del out_sp
+    torch.cuda.empty_cache()
+
+    # the exact fallback: halo 64 leaves 32 px, a pan of 96 px exceeds it;
+    # against make_sharded_eval, whose own repeat gives the card's spread
+    panned = np.clip(np.round((texture(bench.H, bench.W, [(0, 0), (96, 0)])
+                               [None] + 1.0) * 127.5), 0, 255).astype(
+                                   np.uint8)
+    mesh = make_mesh(SHARED, dp=1, sp=2)
+    spill = make_sharded_fast_eval(interp.params, cfg, mesh, halo=64,
+                                   verbose=False)
+    got = spill(panned, [[0.5]]).cpu()
+    exact_fn = make_sharded_eval(interp.params, cfg, mesh)
+    exact = exact_fn(panned, [[0.5]]).cpu()
+    spill_d = bulk((got - exact).abs())
+    exact_spread = bulk((exact_fn(panned, [[0.5]]).cpu() - exact).abs())
+    res_sp = {"phase": "parallel_sp", "hw": [bench.H, bench.W], "slabs":
+              SHARED, "halo": 256, "pairs": pairs, "bulk_vs_single": d,
+              "single_vs_itself": spread, "bulk_limits": BULK,
+              "counters": counters,
+              "fps_two_slabs_one_card": len(ts) / s_sp, "s_per_pair": s_sp,
+              "peak_mem_gib": peak_sp,
+              "launches_per_pair": {k: v / pairs for k, v in seen_sp.items()},
+              "spill_halo64_pan96": {"counters": dict(spill.counters),
+                                     "vs_sharded_eval": spill_d,
+                                     "sharded_eval_vs_itself":
+                                         exact_spread},
+              "card": card}
+    print(json.dumps(res_sp), flush=True)
+
+    if not db >= 60.0:
+        raise AssertionError(f"t-parallel vs single device: {db:.2f} dB")
+    require_counts(seen_t, PER_PAIR_T, pairs, "t-parallel 4K")
+    if any(d[k] >= BULK[k] for k in BULK):
+        raise AssertionError(f"width-sharded vs single device: {d}, limits "
+                             f"{BULK}")
+    if counters != {"n_flow_runs": 1 + pairs, "n_spill_fallbacks": 0}:
+        raise AssertionError(f"width-sharded counters {counters}")
+    require_counts(seen_sp, PER_PAIR_SP, pairs, "width-sharded 4K")
+    if spill.counters != {"n_flow_runs": 1, "n_spill_fallbacks": 1}:
+        raise AssertionError(f"spill run counters {spill.counters}")
+    # 2e-5 held on the mean: the max is not reproducible run to run
+    if not spill_d["mean"] <= 2e-5:
+        raise AssertionError(f"spill fallback vs make_sharded_eval: "
+                             f"{spill_d}")
+    return seen_t, seen_sp
+
+
+def parallel_evaluate(card: str, golden):
+    """8c: evaluate() on the 4K golden clip as an 8-bit test set through
+    parallel_eval in each mode, against phase 7d's single-device reading."""
+    from fldrx_torch.api import prepare_model
+    from fldrx_torch.bench_inputs import deploy_config
+    from fldrx_torch.eval.evaluator import evaluate
+    from fldrx_torch.eval.goldenclip import GoldenTestSet
+    from fldrx_torch.parallel.spatial import build_parallel_eval
+
+    frames, ts, gts, psnr_7d = golden
+    ds = GoldenTestSet(frames, ts, gts)
+    cfg = deploy_config()
+    interp = prepare_model(cfg=cfg, device="cuda")[0]
+    out = {}
+    for mode in ("t", "sp"):
+        fn = build_parallel_eval(interp.params, cfg, mode, devices=SHARED)
+        reset_launches()
+        t0 = time.time()
+        res = evaluate(interp, cfg, "golden", multiple=8, dataset=ds,
+                       verbose=False, parallel_eval=fn)
+        out[mode] = {"psnr": res.psnr, "ssim": res.ssim,
+                     "n_samples": res.n_samples, "s": time.time() - t0,
+                     "launches": launches()}
+    print(json.dumps({"phase": "parallel_evaluate", "hw": list(gts.shape[1:3]),
+                      "psnr_7d_single": psnr_7d, "modes": out,
+                      "card": card}), flush=True)
+    for mode, r in out.items():
+        if r["n_samples"] != len(ts) or not abs(r["psnr"] - psnr_7d) < 0.05:
+            raise AssertionError(f"evaluate through parallel_eval {mode}: "
+                                 f"{r}, phase 7d {psnr_7d} ± 0.05")
+
+
+def dp_rank_steps(rank, world_size, tree, specs):
+    """One rank of 8d: a data-parallel step from the parameter tree on the
+    first global batch, then timed steps on the rest. specs: (t, seed) of
+    each global batch (bench_inputs.train_batch at the training size)."""
+    import torch
+
+    from fldrx_torch.bench_inputs import train_batch, train_config
+    from fldrx_torch.parallel.mesh import make_mesh
+    from fldrx_torch.train.trainer import TrainState, make_train_step
+    from fldrx_torch.weights import (flatten_params, named_leaves,
+                                     params_from_numpy, params_to_numpy)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config()
+    batches = [train_batch(cfg.patch_size, t, seed) for t, seed in specs]
+    params = params_from_numpy(tree, SHARED[rank])
+    state = TrainState.create(params, cfg)
+    step = make_train_step(cfg, make_mesh(SHARED[:world_size],
+                                          dp=world_size, sp=1))
+    m = step(state, batches[0])
+    first = ({k: float(v) for k, v in m.items()},
+             {n: p.grad.cpu().numpy() for n, p in named_leaves(params)
+              if p.grad is not None},
+             flatten_params(params_to_numpy(params)))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        step(state, b)
+    torch.cuda.synchronize()
+    n = len(batches) - 1
+    return first, (time.perf_counter() - t0) / n * 1e3, {
+        k: v / n for k, v in launches().items()}
+
+
+def dp_train_step(card: str):
+    """8d: the data-parallel step on two gloo ranks sharing cuda:0 (nccl
+    refuses two ranks on one device), batch 8 at 512×512 split 4 + 4,
+    S_trn=3, against the single-process step on the same global batch from
+    the same parameters (the checkpoint)."""
+    import torch
+
+    from fldrx_torch.api import DEFAULT_NPZ
+    from fldrx_torch.bench_inputs import train_batch, train_config
+    from fldrx_torch.parallel.distributed import spawn
+    from fldrx_torch.train.trainer import TrainState, make_train_step
+    from fldrx_torch.weights import (flatten_params, load_npz, named_leaves,
+                                     params_from_numpy, params_to_numpy)
+
+    cfg = train_config()
+    gen = torch.Generator().manual_seed(11)
+    specs = [(draw_t(gen, cfg.batch_size), 200 + i) for i in range(4)]
+    tree = load_npz(DEFAULT_NPZ)[0]
+    params = params_from_numpy(tree, "cuda")
+    m = make_train_step(cfg)(TrainState.create(params, cfg), train_batch(
+        cfg.patch_size, *specs[0]))
+    one = ({k: float(v) for k, v in m.items()},
+           {n: p.grad.cpu().numpy() for n, p in named_leaves(params)
+            if p.grad is not None},
+           flatten_params(params_to_numpy(params)))
+    del params, m
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    (r0, ms0, seen0), (r1, ms1, _) = spawn(dp_rank_steps, 2, tree, specs,
+                                           backend="gloo", timeout=900)
+    spawn_s = time.time() - t0
+
+    def rel(a, b):
+        return float(np.linalg.norm(a.astype(np.float64) - b)
+                     / max(np.linalg.norm(b.astype(np.float64)), 1e-30))
+
+    metric_rel = {k: abs(r0[0][k] - v) / max(abs(v), 1e-30)
+                  for k, v in one[0].items()}
+    grad_rel = {k: rel(r0[1][k], v) for k, v in one[1].items()}
+    param_rel = {k: rel(r0[2][k], v) for k, v in one[2].items()}
+    ranks_equal = all(np.array_equal(r0[2][k], r1[2][k]) for k in r0[2])
+    wg = max(grad_rel, key=grad_rel.get)
+    wp = max(param_rel, key=param_rel.get)
+    print(json.dumps({"phase": "dp_train_step", "ranks": SHARED,
+                      "backend": "gloo", "batch": cfg.batch_size,
+                      "hw": [cfg.patch_size] * 2, "S_trn": cfg.S_trn,
+                      "metrics_dp": r0[0], "metrics_one": one[0],
+                      "max_metric_rel": max(metric_rel.values()),
+                      "max_grad_rel_l2": grad_rel[wg], "worst_grad": wg,
+                      "max_param_rel_l2": param_rel[wp], "worst_param": wp,
+                      "ranks_equal": ranks_equal,
+                      "ms_per_step_two_ranks_one_card": [ms0, ms1],
+                      "launches_per_step_rank0": seen0,
+                      "spawn_s": spawn_s, "card": card}), flush=True)
+    bad = {k: v for k, v in metric_rel.items()
+           if not (v <= 1e-4 or r0[0][k] == one[0][k])}
+    if bad:
+        raise AssertionError(f"data-parallel metrics differ: {bad}")
+    if set(grad_rel) != set(r0[1]) or not grad_rel[wg] <= 1e-3:
+        raise AssertionError(f"data-parallel gradient {wg}: {grad_rel[wg]}")
+    if set(param_rel) != set(r0[2]) or not param_rel[wp] <= 1e-3:
+        raise AssertionError(f"data-parallel parameter {wp}: "
+                             f"{param_rel[wp]}")
+    if not ranks_equal:
+        raise AssertionError("the two ranks hold different parameters")
+    require_launched(seen0, TRAIN_KERNELS, "data-parallel step, rank 0")
+
+
+def bench_line():
+    """`python -m fldrx_torch.bench` once; returns its JSON record."""
+    out = subprocess.run([sys.executable, "-m", "fldrx_torch.bench"],
+                         capture_output=True, text=True, cwd=REPO,
+                         timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"fldrx_torch.bench exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    if set(rec) != {"metric", "value", "unit", "card"} or \
+            not rec["value"] > 0:
+        raise AssertionError(f"fldrx_torch.bench printed {rec}")
+    return rec
 
 
 def phase(name: str, fn, *args):
@@ -1453,6 +1773,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     import fldrx_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from fldrx_torch.bench import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1473,14 +1794,21 @@ def main() -> int:
     seen_train = phase("5b training full size", train_full, card)
     phase("6a teacher held", teacher_held)
     seen_teacher = phase("6b teacher full width", teacher_full, card)
-    seen_eval = phase("7 golden clip", golden_clip, card)
+    seen_eval, golden = phase("7 golden clip", golden_clip, card)
+    seen_t, seen_sp = phase("8ab parallel evaluation 4K", parallel_eval_4k,
+                            card)
+    phase("8c parallel evaluate", parallel_evaluate, card, golden)
+    del golden
+    phase("8d data-parallel step", dp_train_step, card)
+    bench_rec = phase("bench", bench_line)
     # launches: the count of the path the row is timed for (the 4K pairs
     # for the forward kernels, the timed train steps for the VJP kernels,
     # the timed teacher calls for the correlation, the evaluator's
     # device-metrics run for the interleave; the deinterleave is on no
     # path, and the 4K pairs show its 0); launches_train: over the 5 timed
     # train steps; launches_teacher: over the 5 timed teacher calls;
-    # launches_eval: over that run
+    # launches_eval: over that run; launches_t_parallel and launches_sp:
+    # over phase 8a's and 8b's 2 timed pairs
     path_of = {"gather_grad": seen_train, "splat_grad": seen_train,
                "correlation": seen_teacher, "interleave": seen_eval}
     for k, r in results.items():
@@ -1488,6 +1816,9 @@ def main() -> int:
         r["launches_train"] = seen_train[k]
         r["launches_teacher"] = seen_teacher[k]
         r["launches_eval"] = seen_eval[k]
+        r["launches_t_parallel"] = seen_t[k]
+        r["launches_sp"] = seen_sp[k]
+    print(json.dumps(bench_rec))
     print(json.dumps({"kernels": list(results.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

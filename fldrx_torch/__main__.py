@@ -8,7 +8,15 @@ the reference's main.py flag set):
 
 Every phase runs on `--device` (default cuda; without a GPU pass
 `--device cpu`). Unknown reference flags are accepted and ignored with a
-warning. `--mesh` (multi-device evaluation) is not ported and raises.
+warning.
+
+Multi-device: `--mesh t|sp` evaluates over the devices `--mesh_devices`
+names: a count of `--device` devices (cuda:0 … cuda:n-1, or n CPU shards
+with `--device cpu`) or a comma-separated list, where a device may repeat
+(`cuda:0,cuda:0`); by default every visible card, or one CPU shard.
+`--phase train` under torchrun trains data-parallel, one rank per device
+of the same list (default: card rank mod the card count, or the CPU),
+over gloo where a card is shared or a rank is on the CPU, else nccl.
 """
 
 from __future__ import annotations
@@ -74,8 +82,14 @@ def parse_args(argv=None):
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--mesh", type=str, default=None, choices=["t", "sp"],
-                   help="multi-device evaluation (not ported; raises)")
-    p.add_argument("--mesh_halo", type=int, default=256)
+                   help="multi-device eval: 't' splits the interpolation "
+                        "times over the devices, 'sp' the frame's width")
+    p.add_argument("--mesh_halo", type=int, default=256,
+                   help="halo columns for --mesh sp (a multiple of 32; "
+                        "motion beyond halo-32 px reruns on the exact path)")
+    p.add_argument("--mesh_devices", type=str, default=None,
+                   help="the devices of --mesh and of data-parallel "
+                        "training: a count or a comma-separated list")
     p.add_argument("--max_steps_per_epoch", type=int, default=None)
     args, unknown = p.parse_known_args(argv)
     if unknown:
@@ -118,25 +132,57 @@ def build_config(args):
     return cfg.replace(**over)
 
 
+def mesh_devices(spec, device: str, world_size: int = 0):
+    """The device list `--mesh_devices` names (see the module docstring);
+    with world_size, one device per rank."""
+    import torch
+
+    from .parallel.mesh import visible_devices
+
+    if spec is None:
+        if torch.device(device).type == "cpu":
+            return ["cpu"] * max(world_size, 1)
+        cards = visible_devices()
+        return ([cards[i % len(cards)] for i in range(world_size)]
+                if world_size else cards)
+    if spec.isdigit():
+        n = int(spec)
+        return (["cpu"] * n if torch.device(device).type == "cpu"
+                else [f"cuda:{i}" for i in range(n)])
+    return [d.strip() for d in spec.split(",") if d.strip()]
+
+
+def _train(args, cfg):
+    import os
+
+    from .train.loop import train, train_it
+    kw = dict(continue_training=args.continue_training,
+              max_steps_per_epoch=args.max_steps_per_epoch,
+              no_validation=args.no_validation, device=args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        from .parallel.distributed import backend_for, init_from_env
+        from .parallel.mesh import make_mesh
+        devices = mesh_devices(args.mesh_devices, args.device, world)
+        if len(devices) != world:
+            raise ValueError(f"{len(devices)} devices for {world} ranks")
+        init_from_env(backend_for(devices))
+        kw["mesh"] = make_mesh(devices, dp=world, sp=1)
+    if args.toptim:
+        train_it(cfg, toptim=True, **kw)
+    else:
+        train(cfg, **kw)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh: multi-device evaluation is not "
-                                  "ported")
     cfg = build_config(args)
     print(f"Exp: {cfg.exp_num}")
     for k, v in dataclasses.asdict(cfg).items():
         print(f"# {k} : {v}")
 
     if cfg.phase == "train":
-        from .train.loop import train, train_it
-        kw = dict(continue_training=args.continue_training,
-                  max_steps_per_epoch=args.max_steps_per_epoch,
-                  no_validation=args.no_validation, device=args.device)
-        if args.toptim:
-            train_it(cfg, toptim=True, **kw)
-        else:
-            train(cfg, **kw)
+        _train(args, cfg)
         return
 
     # the eval sweep (main.py:353-374)
@@ -157,6 +203,15 @@ def main(argv=None):
 
     # test_custom (main.py:891): predictions written, no metrics
     custom = cfg.phase == "test_custom"
+    parallel_eval = None
+    if args.mesh:
+        from .parallel.spatial import build_parallel_eval
+        devices = mesh_devices(args.mesh_devices, args.device)
+        parallel_eval = build_parallel_eval(interp.params, cfg,
+                                            mode=args.mesh, devices=devices,
+                                            halo=args.mesh_halo)
+        print(f"# multi-device eval: mode={args.mesh} over "
+              f"{[str(d) for d in devices]}")
     print("\n------------------- Final Test starts -------------------")
     for name in cfg.testsets:
         mult = TEST_MULTIPLES.get(name, cfg.multiple)
@@ -167,7 +222,8 @@ def main(argv=None):
                        jump_to=args.jumptotest,
                        compute_metrics=not custom, xvfi_psnr=args.XVFIPSNR,
                        save_dir=cfg.log_dir if (args.save_images or custom)
-                       else None, save_flow=args.testgetflowout)
+                       else None, save_flow=args.testgetflowout,
+                       parallel_eval=parallel_eval)
         line = f"Final 4k frames PSNR {name} : {res.psnr:.4}"
         print(line + f"  (SSIM {res.ssim:.4f}, {res.frames_per_sec:.2f} fps)")
         SM.write_info(line)

@@ -17,7 +17,8 @@ _CHANNEL_SHIFTS = ((0, 0), (9, 4), (3, 11))
 
 def deploy_config() -> FLDRConfig:
     """bench.py's deploy mix: papermodel_test5 with a bf16 refine UNet, the
-    float32 flow path and t chunks of 4."""
+    float32 flow path, t chunks of 4 and the ×N synthesis returned as
+    u-planes (planes_out, on by default)."""
     return papermodel_test5().replace(compute_dtype="bfloat16",
                                       flow_dtype="float32", t_chunk=4)
 

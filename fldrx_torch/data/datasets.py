@@ -1,6 +1,7 @@
 """Dataset indexers and frame decoding (counterpart of
-fldrx/data/datasets.py): the X-Train training clips and the test sets
-(X-Test, Xiph, Inter4K, Vimeo) with their ×N item layout.
+fldrx/data/datasets.py): the training sets (X-Train, Inter4K, Vimeo
+triplets) and the test sets (X-Test, Xiph, Inter4K, Vimeo) with their ×N
+item layout.
 
 Decoding uses PIL, imported at first use; PIL loads RGB and the frames are
 flipped to BGR, the reference's cv2 order. fldrx's native PNG decoder is a
@@ -307,3 +308,99 @@ class XTrain:
         rot = rng.randint(0, 3)
         frames = np.rot90(frames, rot, (1, 2))
         return frames_to_tensor(np.ascontiguousarray(frames)), t_value
+
+
+class Inter4KTrain(XTrain):
+    """Inter4K multi-resolution training clips (reference utils.py:269-323):
+    root/<scene>/<sample>/<frame>/im{1k,2k,4k}.png, each clip a list of
+    frame directories. A sample picks its resolution at random (im2k or
+    im4k when patch_size > 512, else any of the three), then follows
+    X-Train's triplet, crop, horizontal flip and rot90; no vertical
+    flip."""
+
+    def __init__(self, cfg: FLDRConfig, max_t_step_size: int = 32):
+        self.cfg = cfg
+        self.max_t_step = max_t_step_size
+        self.clips = []
+        root = cfg.inter4k_data_path
+        for scene in sorted(glob.glob(os.path.join(root, "*", ""))):
+            for sample in sorted(glob.glob(os.path.join(scene, "*", ""))):
+                frames = sorted(glob.glob(os.path.join(sample, "*", "")))
+                if frames:
+                    self.clips.append(frames)
+        if not self.clips:
+            raise RuntimeError(
+                f"Found 0 clip folders in subfolders of: {root}")
+
+    def sample(self, idx: int, rng: random.Random):
+        t_step = rng.randint(2, self.max_t_step)
+        t_list = np.linspace(1 / t_step, 1 - 1 / t_step, t_step - 1)
+        clip = self.clips[idx]
+        first = rng.randint(0, len(clip) - 1 - t_step)
+        inter = rng.randint(1, t_step - 1)
+        t_value = float(t_list[inter - 1])
+        if rng.randint(0, 1):
+            frange = [first, first + t_step, first + inter]
+        else:
+            frange = [first + t_step, first, first + inter]
+            t_value = 1.0 - t_value
+        ps = self.cfg.patch_size
+        choices = (["im2k.png", "im4k.png"] if ps > 512
+                   else ["im1k.png", "im2k.png", "im4k.png"])
+        res = choices[rng.randint(0, len(choices) - 1)]
+        frames = np.stack(
+            [imread_bgr(os.path.join(clip[i], res)) for i in frange], 0)
+        ih, iw = frames.shape[1:3]
+        ix = rng.randrange(0, iw - ps + 1)
+        iy = rng.randrange(0, ih - ps + 1)
+        frames = frames[:, iy:iy + ps, ix:ix + ps]
+        if rng.random() < 0.5:
+            frames = frames[:, :, ::-1]
+        frames = np.rot90(frames, rng.randint(0, 3), (1, 2))
+        return frames_to_tensor(np.ascontiguousarray(frames)), t_value
+
+
+class VimeoTrain:
+    """vimeo_triplet's tri_trainlist (reference utils.py:485-519): the
+    middle frame at t = 0.5, a random temporal flip, a random crop where
+    the frames are at least patch_size, horizontal flip and rot90."""
+
+    def __init__(self, cfg: FLDRConfig):
+        self.cfg = cfg
+        self.clips = []
+        with open(os.path.join(cfg.vimeo_data_path, "tri_trainlist.txt")) as f:
+            for ln in f:
+                sp = ln.strip()
+                if sp:
+                    fr = sorted(glob.glob(os.path.join(
+                        cfg.vimeo_data_path, "sequences", sp, "*.png")))
+                    if len(fr) >= 3:
+                        self.clips.append(fr)
+
+    def __len__(self):
+        return len(self.clips)
+
+    def sample(self, idx: int, rng: random.Random):
+        clip = self.clips[idx]
+        frange = [0, 2, 1] if rng.randint(0, 1) else [2, 0, 1]
+        frames = np.stack([imread_bgr(clip[i]) for i in frange], 0)
+        ps = self.cfg.patch_size
+        ih, iw = frames.shape[1:3]
+        if ih >= ps and iw >= ps:
+            ix = rng.randrange(0, iw - ps + 1)
+            iy = rng.randrange(0, ih - ps + 1)
+            frames = frames[:, iy:iy + ps, ix:ix + ps]
+        if rng.random() < 0.5:
+            frames = frames[:, :, ::-1]
+        frames = np.rot90(frames, rng.randint(0, 3), (1, 2))
+        return frames_to_tensor(np.ascontiguousarray(frames)), 0.5
+
+
+def get_train_dataset(cfg: FLDRConfig):
+    """The training set cfg.dataset names: X-Train for X4K1000FPS, Inter4K
+    for Inter4K*, else the Vimeo triplets."""
+    if cfg.dataset == "X4K1000FPS":
+        return XTrain(cfg)
+    if cfg.dataset.startswith("Inter4K"):
+        return Inter4KTrain(cfg)
+    return VimeoTrain(cfg)

@@ -117,9 +117,10 @@ def evaluate(interp: Interpolator, cfg: FLDRConfig, dataset_name: str,
     utils.py:998-1022). device_metrics=False keeps the metrics on the host
     even where the card path applies. `dataset` replaces the test set that
     dataset_name names on disk (dataset_name still names the outputs).
-    parallel_eval (multi-device) is not ported and raises."""
-    if parallel_eval is not None:
-        raise NotImplementedError("multi-device evaluation is not ported")
+    parallel_eval, a multi-device callable (frames [1,2,H,W,3], t_values)
+    → [T, H, W, 3] from parallel.spatial.build_parallel_eval, replaces the
+    single-device ×N synthesis of each pair; the metrics then run where its
+    output lies, or on the host."""
     multiple = multiple or TEST_MULTIPLES.get(dataset_name, cfg.multiple)
     ds = dataset if dataset is not None else get_test_dataset(
         cfg, dataset_name, multiple, validation, half_res=half_res)
@@ -220,21 +221,26 @@ def evaluate(interp: Interpolator, cfg: FLDRConfig, dataset_name: str,
         H, W = inputs.shape[2], inputs.shape[3]
         t0 = time.time()
         ts = [it[2] for it in items]
-        flow, padded, extras = interp.precompute_flow(inputs)
-        flow_img = (flow_image(flow, padded, H, W)
-                    if save_flow and save_dir else None)
-        # scored on the device: plain rows (the interleave kernel);
-        # fetched to the host: cfg.planes_out, unpacked on the workers
-        outs = [interp.synthesize_multi_at(flow, padded, ts[k:k + tchunk],
-                                           (H, W), extras,
-                                           planes_out=False if devmet else None)
-                for k in range(0, len(ts), tchunk)]
+        if parallel_eval is not None:
+            flow_img = None
+            starts = [0]
+            outs = [torch.as_tensor(parallel_eval(inputs, ts))[:, None]]
+        else:
+            flow, padded, extras = interp.precompute_flow(inputs)
+            flow_img = (flow_image(flow, padded, H, W)
+                        if save_flow and save_dir else None)
+            # scored on the device: plain rows (the interleave kernel);
+            # fetched to the host: cfg.planes_out, unpacked on the workers
+            starts = list(range(0, len(ts), tchunk))
+            outs = [interp.synthesize_multi_at(
+                flow, padded, ts[k:k + tchunk], (H, W), extras,
+                planes_out=False if devmet else None) for k in starts]
         if devmet:
             scores = []
-            for k, out in zip(range(0, len(ts), tchunk), outs):
+            for k, out in zip(starts, outs):
                 tgts = torch.as_tensor(np.stack(
-                    [it[1][2] for it in items[k:k + tchunk]], 0)).to(
-                        interp.device)
+                    [it[1][2] for it in items[k:k + len(out)]], 0)).to(
+                        out.device)
                 ps, ss = metfn(out[:, 0], tgts)
                 scores += zip(ps.tolist(), ss.tolist())
             dt = (time.time() - t0) / len(items)

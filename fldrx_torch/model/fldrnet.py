@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from ..config import FLDRConfig
 from ..device import resolve_device
 from ..ops import fastwarp
-from ..ops.block_pca import block_pca_features
+from ..ops.block_pca import block_pca_features, pca_projection
 from ..ops.fastconv import conv3x3
 from ..ops.repack import interleave_planes
 from ..ops.resize import resize_2d
@@ -497,18 +497,42 @@ def _packed_enabled(cfg: FLDRConfig) -> bool:
     return cfg.fast_warp and cfg.packed_synth
 
 
+def _level_pca(params: Params, cfg: FLDRConfig, level: int) -> Params:
+    """The PCA fit that pyramid level `level` is transformed with."""
+    pca = params["pca"]
+    if not cfg.exac_one_ev:
+        pca = params.get("pca_multi", {}).get(f"s{cfg.scales[level]}", pca)
+    return pca
+
+
+def pca_extrema(params: Params, cfg: FLDRConfig,
+                pyramid: Sequence[torch.Tensor], n_levels: int):
+    """[(min, max)] of each level's block-PCA components before the
+    min-max: what a part of a batch contributes to the batch's extremes."""
+    out = []
+    for i in range(n_levels):
+        pca = _level_pca(params, cfg, i)
+        f = pca_projection(pyramid[i], pca["mean"], pca["ev"],
+                           pca["mean_vec"], wiS=cfg.wiS)
+        out.append((f.amin(), f.amax()))
+    return out
+
+
 def extract_features(params: Params, cfg: FLDRConfig,
                      pyramid: Sequence[torch.Tensor], n_levels: int,
-                     compute_dtype=torch.float32) -> List[torch.Tensor]:
-    """Per-level PCA features + the residual context convs."""
+                     compute_dtype=torch.float32,
+                     minmax=None) -> List[torch.Tensor]:
+    """Per-level PCA features + the residual context convs. `minmax(feat,
+    level)` → (min, max), if given, supplies the whole batch's extremes
+    where `pyramid` holds a part of the batch (ops/block_pca.py)."""
     feats = []
     for i in range(n_levels):
-        pca = params["pca"]
-        if not cfg.exac_one_ev:
-            pca = params.get("pca_multi", {}).get(f"s{cfg.scales[i]}", pca)
+        pca = _level_pca(params, cfg, i)
         f = block_pca_features(
             pyramid[i], pca["mean"], pca["ev"], pca["mean_vec"], wiS=cfg.wiS,
-            per_item_minmax=cfg.per_item_minmax).to(compute_dtype)
+            per_item_minmax=cfg.per_item_minmax,
+            minmax=None if minmax is None else functools.partial(
+                minmax, level=i)).to(compute_dtype)
         r = relu(conv2d(params["rec_ctx"]["conv0"], f))
         r = relu(conv2d(params["rec_ctx"]["conv1"], r))
         feats.append(r + f)
@@ -517,11 +541,12 @@ def extract_features(params: Params, cfg: FLDRConfig,
 
 def forward_flow(params: Params, cfg: FLDRConfig,
                  pyramid: Sequence[torch.Tensor],
-                 compute_dtype=torch.float32) -> torch.Tensor:
-    """Coarse-to-fine flow estimation (levels S_tst..0); t-independent."""
+                 compute_dtype=torch.float32, minmax=None) -> torch.Tensor:
+    """Coarse-to-fine flow estimation (levels S_tst..0); t-independent.
+    `minmax`: see extract_features."""
     compute_dtype = _stage_dtype(cfg, "flow_dtype", compute_dtype)
     feats = extract_features(params, cfg, pyramid, cfg.S_tst + 1,
-                             compute_dtype)
+                             compute_dtype, minmax)
     vp = params["vfinet"]
     flow = None
     for level in range(cfg.S_tst, -1, -1):
@@ -605,11 +630,11 @@ def forward_synthesis_multi(params: Params, cfg: FLDRConfig,
 def forward_test(params: Params, cfg: FLDRConfig,
                  pyramid: Sequence[torch.Tensor], t: torch.Tensor,
                  orig_hw: Optional[Tuple[int, int]] = None,
-                 compute_dtype=torch.float32) -> torch.Tensor:
+                 compute_dtype=torch.float32, minmax=None) -> torch.Tensor:
     """Inference: flow on levels S_tst..0, synthesis at level 0.
     pyramid[i]: [B, 2, H_i, W_i, 3]; returns [B, H, W, 3] cropped to
-    orig_hw."""
-    flow = forward_flow(params, cfg, pyramid, compute_dtype)
+    orig_hw. `minmax`: see extract_features."""
+    flow = forward_flow(params, cfg, pyramid, compute_dtype, minmax)
     return forward_synthesis(params, cfg, flow, pyramid[0], t, orig_hw,
                              compute_dtype=compute_dtype)
 
@@ -617,15 +642,16 @@ def forward_test(params: Params, cfg: FLDRConfig,
 def forward_train(params: Params, cfg: FLDRConfig,
                   pyramid: Sequence[torch.Tensor], t: torch.Tensor,
                   validation: bool = False,
-                  compute_dtype=torch.float32) -> Dict[str, Any]:
+                  compute_dtype=torch.float32, minmax=None) -> Dict[str, Any]:
     """Training forward: flow and synthesis at every level S_trn..0 (fldrx
     forward_train). With cfg.fast_warp_train the warps are the kernel forms
     with kernel backward passes. Returns the out pyramid (fine → coarse),
     the refined and unrefined flow pyramids, occ_0 at level 0, the mean
-    picture and the endflow pyramid."""
+    picture and the endflow pyramid. `minmax`: see extract_features."""
     S = cfg.S_trn
     fast = cfg.fast_warp_train
-    feats = extract_features(params, cfg, pyramid, S + 1, compute_dtype)
+    feats = extract_features(params, cfg, pyramid, S + 1, compute_dtype,
+                             minmax)
     vp = params["vfinet"]
     crop = None
     if validation:

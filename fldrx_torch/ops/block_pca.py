@@ -6,19 +6,21 @@ runs on its first batch (host numpy in float64, as fldrx fits).
 
 Channel order (checkpoint contract): feature channel = c·2nf + t·nf + comp.
 The min-max uses `amin`/`amax`, whose gradient splits evenly among tied
-extremes, as jnp.min/jnp.max do.
+extremes, as jnp.min/jnp.max do. A caller whose batch is split over
+devices passes `minmax`, which returns the whole batch's extremes
+(parallel/distributed.py, parallel/spatial.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 __all__ = ["block_pca_features", "blocks_from_images", "fit_block_pca",
-           "PCAState"]
+           "pca_projection", "PCAState"]
 
 
 @dataclasses.dataclass
@@ -60,13 +62,11 @@ def blocks_from_images(x: torch.Tensor, wiS: int = 8) -> torch.Tensor:
     return x.reshape(*lead, hb, wb, wiS * wiS)
 
 
-def block_pca_features(frames: torch.Tensor, mean: torch.Tensor,
-                       ev: torch.Tensor, mean_vec: torch.Tensor,
-                       wiS: int = 8,
-                       per_item_minmax: bool = False) -> torch.Tensor:
-    """frames [B, 2, H, W, C] in [-1,1] → [B, H/wiS, W/wiS, C·2·nf] float32,
-    min-max normalised to [-1,1] over the whole batch (the reference), or
-    over each batch item with `per_item_minmax`."""
+def pca_projection(frames: torch.Tensor, mean: torch.Tensor,
+                   ev: torch.Tensor, mean_vec: torch.Tensor,
+                   wiS: int = 8) -> torch.Tensor:
+    """frames [B, 2, H, W, C] → the block-PCA components before the min-max,
+    [B, H/wiS, W/wiS, C·2·nf] float32."""
     B, T, H, W, C = frames.shape
     if T != 2:
         raise ValueError(f"expected two frames, got {T}")
@@ -77,11 +77,27 @@ def block_pca_features(frames: torch.Tensor, mean: torch.Tensor,
     b = blocks_from_images(xc, wiS)                     # [B,C,2,hb,wb,64]
     proj = torch.einsum("...k,nk->...n", b - mean.float(), ev.float())
     proj = proj / mean_vec.float()                      # [B,C,2,hb,wb,nf]
-    feat = proj.permute(0, 3, 4, 1, 2, 5).reshape(B, hb, wb, C * 2 * nf)
+    return proj.permute(0, 3, 4, 1, 2, 5).reshape(B, hb, wb, C * 2 * nf)
+
+
+def block_pca_features(frames: torch.Tensor, mean: torch.Tensor,
+                       ev: torch.Tensor, mean_vec: torch.Tensor,
+                       wiS: int = 8,
+                       per_item_minmax: bool = False,
+                       minmax: Optional[Callable] = None) -> torch.Tensor:
+    """frames [B, 2, H, W, C] in [-1,1] → [B, H/wiS, W/wiS, C·2·nf] float32,
+    min-max normalised to [-1,1] over the whole batch (the reference), or
+    over each batch item with `per_item_minmax`. `minmax(feat)` → (min,
+    max), if given, supplies the batch's extremes where `frames` is only
+    a part of the batch; it is not used with `per_item_minmax`."""
+    feat = pca_projection(frames, mean, ev, mean_vec, wiS)
+    B = feat.shape[0]
     if per_item_minmax:
         flat = feat.reshape(B, -1)
         mi = flat.amin(1).view(B, 1, 1, 1)
         ma = flat.amax(1).view(B, 1, 1, 1)
+    elif minmax is not None:
+        mi, ma = minmax(feat)
     else:
         mi = feat.amin()
         ma = feat.amax()

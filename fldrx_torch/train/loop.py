@@ -4,10 +4,14 @@ the X-Test validation crops at multiple=4 (skipped for the rest of the run
 when the validation data is missing), a checkpoint and log lines per epoch,
 the training pyramid image dump of `cfg.save_images`, resume with
 optimiser state and step, and the T-optimisation stage with a fresh
-optimiser.
+optimiser. The training set is the one cfg.dataset names (X-Train,
+Inter4K or the Vimeo triplets).
 
-Not ported, and refused rather than skipped: the Orbax checkpoints,
-datasets other than X-Train, and multi-device training.
+With a mesh, `train` is one rank of a data-parallel run
+(parallel/distributed.py): every rank reads the same global batches and
+steps on its shard; rank 0 alone validates, writes checkpoints and logs.
+
+Not ported, and refused rather than skipped: the Orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from ..config import FLDRConfig
-from ..data.datasets import XTrain
+from ..data.datasets import get_train_dataset
 from ..data.loader import train_batches
 from ..device import resolve_device
 from ..eval.evaluator import Meter, evaluate
@@ -84,23 +88,35 @@ def assign_params(params, subtree) -> None:
 def _refuse_unported(cfg: FLDRConfig) -> None:
     if cfg.use_orbax:
         raise NotImplementedError("Orbax checkpoints are not ported")
-    if cfg.dataset != "X4K1000FPS":
-        raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported; "
-                                  "only X-Train (X4K1000FPS) is")
 
 
-def train(cfg: FLDRConfig, max_steps_per_epoch: Optional[int] = None,
+def train(cfg: FLDRConfig, mesh=None,
+          max_steps_per_epoch: Optional[int] = None,
           continue_training: bool = False, seed: int = 0,
           no_validation: bool = False, verbose: bool = True, device=None):
-    """Full training run on `device` (default cuda). Returns (params,
-    best_psnr). Without validation (no_validation, or no validation data)
-    each epoch records test PSNR 1.0, so the first epoch's checkpoint is
-    the best one."""
+    """Full training run on `device` (default cuda), or with `mesh` one
+    rank's part of a data-parallel run on its mesh device (the process
+    group must exist; `device` is then unused). Returns (params,
+    best_psnr), best_psnr as rank 0 saw it. Without validation
+    (no_validation, or no validation data) each epoch records test PSNR
+    1.0, so the first epoch's checkpoint is the best one."""
     _refuse_unported(cfg)
-    dev = resolve_device(device)
+    if mesh is not None:
+        from ..parallel.distributed import broadcast_params, dp_rank
+        rank = dp_rank(mesh)
+        dev = mesh.devices[rank, 0]
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)      # nccl's collectives use it
+        sync = broadcast_params
+    else:
+        rank, dev, sync = 0, resolve_device(device), None
+    lead = rank == 0
+    verbose = verbose and lead
+    no_validation = no_validation or not lead
     SM = SaveManager(cfg)
-    SM.write_config()
-    dataset = XTrain(cfg)
+    if lead:
+        SM.write_config()
+    dataset = get_train_dataset(cfg)
     if len(dataset) < cfg.batch_size:
         raise ValueError(
             f"dataset has {len(dataset)} clips < batch_size {cfg.batch_size} "
@@ -120,6 +136,8 @@ def train(cfg: FLDRConfig, max_steps_per_epoch: Optional[int] = None,
         pca_fitted = True
     else:
         params = init_params(torch.Generator().manual_seed(seed), cfg, dev)
+    if sync:
+        sync(params)
 
     state = TrainState.create(params, cfg, steps_per_epoch)
     # the T-optimisation stage starts a fresh optimiser (new rate, frozen
@@ -127,10 +145,11 @@ def train(cfg: FLDRConfig, max_steps_per_epoch: Optional[int] = None,
     if not cfg.t_optimization:
         state.load_optimizer_state(
             opt_state, None if saved_step is None else int(saved_step))
-    step_fn = make_train_step(cfg)
+    step_fn = make_train_step(cfg, mesh)
 
     scalar_log = os.path.join(cfg.text_dir, f"{cfg.model_dir}_scalars.jsonl")
-    tb = EventWriter(os.path.join(cfg.log_dir, f"exp_{cfg.exp_num}"))
+    tb = (EventWriter(os.path.join(cfg.log_dir, f"exp_{cfg.exp_num}"))
+          if lead else None)
     if verbose:
         n = sum(p.numel() for _, p in named_leaves(params))
         print(f"Total Parameters: {n}")
@@ -148,6 +167,8 @@ def train(cfg: FLDRConfig, max_steps_per_epoch: Optional[int] = None,
             if not pca_fitted:
                 assign_params(state.params,
                               fit_pca_from_batch(batch["frames"], cfg, dev))
+                if sync:
+                    sync(state.params)
                 pca_fitted = True
             batch["epoch"] = np.float32(epoch)
             m = step_fn(state, batch)
@@ -159,7 +180,7 @@ def train(cfg: FLDRConfig, max_steps_per_epoch: Optional[int] = None,
                     print(f"Epoch [{epoch}][{i}/{steps_per_epoch}] "
                           f"loss {losses.avg:.4e} warp {warp_loss.avg:.4e} "
                           f"PSNR {batch_psnr.avg:.2f}")
-                if cfg.save_images:
+                if cfg.save_images and lead:
                     _dump_pyramid(cfg, state.params, batch, epoch, i, dev)
         if verbose:
             print(f"Time needed for epoch (min): "
@@ -180,6 +201,8 @@ def train(cfg: FLDRConfig, max_steps_per_epoch: Optional[int] = None,
                 no_validation = True
         best = test_psnr > best_psnr
         best_psnr = max(best_psnr, test_psnr)
+        if not lead:
+            continue
         SM.save(state.params, {
             "last_epoch": epoch, "batch_size": cfg.batch_size,
             "trainLoss": losses.avg, "testLoss": test_loss,
@@ -202,7 +225,8 @@ def train(cfg: FLDRConfig, max_steps_per_epoch: Optional[int] = None,
         }, step=state.step)
         tb.flush()
 
-    tb.close()
+    if tb is not None:
+        tb.close()
     return state.params, best_psnr
 
 

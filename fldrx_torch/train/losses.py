@@ -172,14 +172,19 @@ def distillation_loss(unref_flow_pyramid, gtflow: torch.Tensor) -> torch.Tensor:
 
 def total_loss(cfg: FLDRConfig, fwd_out: dict, target: torch.Tensor,
                frames: torch.Tensor, t: torch.Tensor, params=None,
-               epoch=None):
+               epoch=None, group_mean=None):
     """The shipped training loss and its metrics. frames [B,2,H,W,3] are
     the level-0 inputs; target [B,H,W,3]; t [B,1].
 
     Optional switches (off in the papermodel): cfg.warping_loss adds the
     epoch-annealed backward-warp term, alpha = warp_alpha·(1 −
     exp(−(epochs/4 − epoch))) while epoch ≤ epochs/4; cfg.orth_loss adds
-    the EV orthogonality penalty when it is at least 0.1."""
+    the EV orthogonality penalty when it is at least 0.1.
+
+    Every loss term is a plain mean over the batch, so over equal shards of
+    a batch the whole batch's term is the mean of the shards' terms. The
+    PSNR is not: where the batch is split over processes, `group_mean`
+    (a mean over the group) makes its MSE the whole batch's."""
     rec = pyramid_rec_loss(cfg, fwd_out["out_pyramid"], target)
     s = cfg.scales[0]
     h, w = frames.shape[2] // s, frames.shape[3] // s
@@ -209,6 +214,8 @@ def total_loss(cfg: FLDRConfig, fwd_out: dict, target: torch.Tensor,
         total = total + torch.where(orth >= 0.1, orth, torch.zeros_like(orth))
     # per-batch PSNR on [0,1]-denormed frames (data_range 1)
     mse = torch.mean((fwd_out["out_pyramid"][0] / 2 - target / 2) ** 2)
+    if group_mean is not None:
+        mse = group_mean(mse.detach())
     psnr = -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
     return total, {"loss": total, "rec": rec, "smooth": smooth, "warp": warp,
                    "orth": orth, "psnr": psnr}

@@ -14,8 +14,13 @@ fldrx/train/trainer.py).
   piecewise_constant_schedule does with its count taken before the
   increment.
 - One step: pyramid → `forward_train` → `total_loss` → backward → update.
-  PyTorch runs eagerly, so the state is updated in place. Multi-device
-  training is not ported yet.
+  PyTorch runs eagerly, so the state is updated in place.
+- Data-parallel: `make_train_step(cfg, mesh)` runs in one process per dp
+  shard of the mesh (parallel/distributed.py): each rank takes its shard of
+  the global batch, the PCA min/max and the PSNR's MSE are the whole
+  batch's, and the gradients and metrics are averaged over the ranks, so
+  the step gives what the single-process step gives on the global batch.
+  A mesh with sp > 1 raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -143,29 +148,58 @@ def _device_of(params) -> torch.device:
     return next(iter(named_leaves(params)))[1].device
 
 
-def train_loss(cfg: FLDRConfig, params, batch: Dict[str, Any]):
+def train_loss(cfg: FLDRConfig, params, batch: Dict[str, Any],
+               minmax=None, group_mean=None):
     """(loss, metrics) of one batch {frames [B,2,H,W,3], target [B,H,W,3],
-    t [B,1], optional epoch}, on the parameters' device."""
+    t [B,1], optional epoch}, on the parameters' device. `minmax` and
+    `group_mean` make a shard's PCA extremes and PSNR the whole batch's
+    (forward_train, total_loss)."""
     dev = _device_of(params)
     frames = torch.as_tensor(batch["frames"]).to(dev, torch.float32)
     target = torch.as_tensor(batch["target"]).to(dev, torch.float32)
     t = torch.as_tensor(batch["t"]).to(dev, torch.float32)
     pyr = build_pyramid(frames, cfg, cfg.S_trn + 1)
-    out = forward_train(params, cfg, pyr, t)
+    out = forward_train(params, cfg, pyr, t, minmax=minmax)
     return total_loss(cfg, out, target, frames, t, params=params,
-                      epoch=batch.get("epoch"))
+                      epoch=batch.get("epoch"), group_mean=group_mean)
 
 
-def make_train_step(cfg: FLDRConfig):
+def make_train_step(cfg: FLDRConfig, mesh=None):
     """Returns step(state, batch) → metrics (detached tensors): zero the
     gradients, compute the loss, backward, update `state` in place. The
-    gradients stay in each parameter's .grad until the next step."""
+    gradients stay in each parameter's .grad until the next step.
 
-    def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+    With `mesh` (parallel.mesh.Mesh, sp = 1) the step is one rank's part of
+    a data-parallel step: `batch` is the global batch, the rank takes its dp
+    shard (parallel.mesh.batch_specs), and the gradients left in .grad and
+    the metrics returned are the group's means."""
+    if mesh is None:
+        def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, metrics = train_loss(cfg, state.params, batch)
+            loss.backward()
+            state.apply_gradients()
+            return {k: v.detach() for k, v in metrics.items()}
+
+        return step
+
+    from ..parallel import distributed as D
+    from ..parallel.mesh import shard_of
+
+    rank = D.dp_rank(mesh)
+
+    def dp_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = train_loss(cfg, state.params, batch)
+        local = shard_of(mesh, batch, rank, 0)
+        loss, metrics = train_loss(cfg, state.params, local,
+                                   minmax=D.group_minmax,
+                                   group_mean=D.group_mean)
         loss.backward()
+        D.average_gradients(state.params)
         state.apply_gradients()
-        return {k: v.detach() for k, v in metrics.items()}
+        psnr = metrics.pop("psnr").detach()
+        out = D.group_mean_dict(metrics)
+        out["psnr"] = psnr
+        return out
 
-    return step
+    return dp_step

@@ -96,11 +96,15 @@ def test_build_config_matches_main(argv):
 
 
 def test_cli_refusals_and_metrics_evaluation(tmp_path, capsys):
-    """--mesh raises until multi-device is ported; metrics_evaluation loads
-    the model and runs no loop, as the reference."""
+    """--mesh sp refuses a halo that is not a multiple of 32 before any
+    data is read; metrics_evaluation loads the model and runs no loop, as
+    the reference."""
     from fldrx_torch import __main__ as tmain
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tmain.main(["--mesh", "t", "--device", "cpu"])
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tmain.main(["--mesh", "sp", "--mesh_halo", "48", "--device", "cpu",
+                    "--mesh_devices", "2", "--papermodel", "--test3scales",
+                    "--text_dir", str(tmp_path / "txt"),
+                    "--checkpoint_dir", str(tmp_path / "ck")])
     tmain.main(["--device", "cpu", "--papermodel", "--test3scales",
                 "--phase", "metrics_evaluation",
                 "--text_dir", str(tmp_path / "txt"),

@@ -256,8 +256,8 @@ def test_evaluate_matches_fldrx(mode, eval_models):
 
 def test_evaluate_options(eval_models, tmp_path):
     """stop_at, jump_to, the prediction and flow dumps, test_custom (no
-    metrics), the per-t meters of a ×N set, and the refusal of
-    multi-device evaluation."""
+    metrics), the per-t meters of a ×N set, and a multi-device bridge
+    (parallel_eval) in place of the pair's synthesis."""
     interp, tc, _, _ = eval_models
     base = tev.evaluate(interp, tc, "X4K1000FPS", verbose=False)
     res = tev.evaluate(interp, tc, "X4K1000FPS", verbose=False, stop_at=2,
@@ -275,8 +275,11 @@ def test_evaluate_options(eval_models, tmp_path):
     assert custom.n_samples == 0
     assert len(list((tmp_path / "c").rglob("*.png"))) == 7
     assert base.n_samples == 7
-    with pytest.raises(NotImplementedError):
-        tev.evaluate(interp, tc, "X4K1000FPS", parallel_eval=lambda *a: a)
+    bridged = tev.evaluate(
+        interp, tc, "X4K1000FPS", verbose=False,
+        parallel_eval=lambda fr, ts: interp.interpolate_multi_np(fr, ts)[:, 0])
+    assert bridged.n_samples == 7
+    assert abs(bridged.psnr - base.psnr) <= 1e-4
 
 
 @pytest.fixture(scope="module")
