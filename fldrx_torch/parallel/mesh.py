@@ -54,7 +54,8 @@ class Mesh:
 def visible_devices():
     """Every visible CUDA device; raises without a GPU."""
     resolve_device(None)
-    return [torch.device(f"cuda:{i}") for i in range(torch.cuda.device_count())]
+    return [torch.device(f"cuda:{i}")
+            for i in range(torch.cuda.device_count())]
 
 
 def make_mesh(devices: Optional[Sequence] = None,

@@ -212,7 +212,8 @@ def test_cli_train_under_torchrun(tmp_path):
            "--batch_size", "2", "--epochs", "1", "--no_validation",
            "--x_train_data_path", root,
            "--checkpoint_dir", str(tmp_path / "ck"),
-           "--text_dir", str(tmp_path / "tx"), "--log_dir", str(tmp_path / "lg")]
+           "--text_dir", str(tmp_path / "tx"),
+           "--log_dir", str(tmp_path / "lg")]
     out = subprocess.run(cmd, capture_output=True, text=True, env=env,
                          cwd=str(tmp_path), timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
