@@ -204,6 +204,62 @@ def refine_unet_s2d(p: Params, x: torch.Tensor) -> torch.Tensor:
     return d2s(refine_unet_s2d_core(p, s2d(x, 4)), 4)
 
 
+def unet_reach() -> int:
+    """The refine UNet's receptive reach: the largest distance, in input
+    columns, between an output column and an input column it depends on.
+    Each layer maps an interval of its output columns to the interval it
+    reads (3×3 convs with padding 1, the stride-2 encoders, nearest 2×
+    upsampling, the skip concatenations); the reach is the widest over the
+    8 phases of the stride-8 grid."""
+    def conv(iv, stride=1):
+        return stride * iv[0] - 1, stride * iv[1] + 1
+
+    def up(iv):
+        return iv[0] // 2, iv[1] // 2
+
+    def union(a, b):
+        return min(a[0], b[0]), max(a[1], b[1])
+
+    # each maps columns [lo, hi] of a layer's output to the input's
+    def enc1(iv):
+        return conv(iv, 2)
+
+    def enc2(iv):
+        return enc1(conv(iv, 2))
+
+    def dec0(iv):
+        return enc2(conv(conv(iv), 2))              # dec0 ∘ enc3
+
+    def dec1(iv):
+        c = conv(iv)
+        return union(dec0(up(c)), enc2(c))
+
+    def dec2(iv):
+        c = conv(iv)
+        return union(dec1(up(c)), enc1(c))
+
+    reach = 0
+    for x in range(8):
+        lo, hi = dec2(up(conv((x, x))))            # dec3 on up(dec2)
+        reach = max(reach, x - lo, hi - x)
+    return reach
+
+
+UNET_GRID = 8           # the UNet's stride: slabs start on multiples of it
+# columns a width slab of the level-0 synthesis takes on each side for the
+# refine UNet (its reach, rounded up to the grid), so that its output over
+# the slab equals the whole frame's
+UNET_HALO = -(-unet_reach() // UNET_GRID) * UNET_GRID
+
+
+def unet_columns(cols: Tuple[int, int], W: int) -> Tuple[int, int]:
+    """The columns [a, b) of a frame W wide that the refine UNet reads for
+    output columns [lo, hi): UNET_HALO on each side, none beyond the
+    frame."""
+    lo, hi = cols
+    return max(0, lo - UNET_HALO), min(W, hi + UNET_HALO)
+
+
 # ---------------------------------------------------------------------------
 # flow
 # ---------------------------------------------------------------------------
@@ -270,12 +326,18 @@ def z_metrics(p: Params, x0, x1, flow_10, flow_01, fast: bool = False):
 def synthesize(p: Params, flow_l: torch.Tensor, images: torch.Tensor,
                t: torch.Tensor, crop_hw: Optional[Tuple[int, int]] = None,
                fast: bool = False, precomputed=None,
-               compute_dtype=torch.float32):
+               compute_dtype=torch.float32,
+               cols: Optional[Tuple[int, int]] = None):
     """Warp + blend at one level (fldrx synthesize).
 
     flow_l [B, h, w, 4]; images [B, 2, H, W, 3]; t [B, 1]; `crop_hw` crops
     the full-resolution flows and frames before the warps (validation).
-    Returns (out [B, H, W, 3], flow_refine, occ_0, (flow_t0, flow_t1))."""
+    Returns (out [B, H, W, 3], flow_refine, occ_0, (flow_t0, flow_t1)).
+
+    With `cols` (lo, hi), multiples of UNET_GRID, the warps still cover the
+    whole frame but the refine UNet reads only `unet_columns` and the blend
+    makes only columns [lo, hi): out and occ_0 are [B, H, hi − lo, ·], equal
+    to those columns of the whole frame's (width-sharded training)."""
     B = flow_l.shape[0]
     tb = t.reshape(B, 1, 1, 1).to(flow_l.dtype)
     flow_10 = flow_l[..., 0:2]
@@ -334,13 +396,25 @@ def synthesize(p: Params, flow_l: torch.Tensor, images: torch.Tensor,
     im0_tot = bw(x0, flowback_0)
     im1_tot = bw(x1, flowback_1)
 
-    refine_in = torch.cat(
-        [x0, x1, warped0, warped1, flow_t0, flow_t1,
-         flowback_0, flowback_1, im0_tot, im1_tot], -1)       # 26 ch
+    parts = [x0, x1, warped0, warped1, flow_t0, flow_t1,
+             flowback_0, flowback_1, im0_tot, im1_tot]
+    if cols is not None:
+        lo, hi = cols
+        if lo % UNET_GRID or hi % UNET_GRID:
+            raise ValueError(f"slab {cols} is off the UNet's {UNET_GRID}-"
+                             "column grid")
+        a, b = unet_columns(cols, x0.shape[2])
+        parts = [v[:, :, a:b] for v in parts]
+    refine_in = torch.cat(parts, -1)                         # 26 ch
     unet = (refine_unet_s2d
             if refine_in.shape[1] % 4 == 0 and refine_in.shape[2] % 4 == 0
             else refine_unet)
     out = unet(p["refine"], refine_in.to(compute_dtype)).float()
+    if cols is not None:
+        out = out[:, :, lo - a:hi - a]
+        x0, x1, warped0, warped1, im0_tot, im1_tot = (
+            v[:, :, lo:hi] for v in (x0, x1, warped0, warped1, im0_tot,
+                                     im1_tot))
 
     T = p["T_param"].float()
     occ = torch.softmax(out[..., :6] / T, -1)
@@ -642,12 +716,15 @@ def forward_test(params: Params, cfg: FLDRConfig,
 def forward_train(params: Params, cfg: FLDRConfig,
                   pyramid: Sequence[torch.Tensor], t: torch.Tensor,
                   validation: bool = False,
-                  compute_dtype=torch.float32, minmax=None) -> Dict[str, Any]:
+                  compute_dtype=torch.float32, minmax=None,
+                  cols: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
     """Training forward: flow and synthesis at every level S_trn..0 (fldrx
     forward_train). With cfg.fast_warp_train the warps are the kernel forms
     with kernel backward passes. Returns the out pyramid (fine → coarse),
     the refined and unrefined flow pyramids, occ_0 at level 0, the mean
-    picture and the endflow pyramid. `minmax`: see extract_features."""
+    picture and the endflow pyramid. `minmax`: see extract_features.
+    `cols` (lo, hi): level 0's output and occ_0 cover only those columns
+    (synthesize)."""
     S = cfg.S_trn
     fast = cfg.fast_warp_train
     feats = extract_features(params, cfg, pyramid, S + 1, compute_dtype,
@@ -663,7 +740,7 @@ def forward_train(params: Params, cfg: FLDRConfig,
         flow = level_flow(vp, feats[level], flow, fast=fast)
         out, fr, occ0, endflow = synthesize(
             vp, flow.float(), pyramid[level].float(), t, crop_hw=crop,
-            fast=fast)
+            fast=fast, cols=cols if level == 0 else None)
         outs.append(out)
         flow_refines.append(fr)
         unrefined.append(flow)

@@ -1,8 +1,9 @@
 """Learned block-PCA ("fLDR") features: the in-graph transform
 `to_pca_diff` (reference pca_comp.py:473-528) as in fldrx/ops/block_pca.py
 (its default 'legacy' layout): 8×8 blocking, (x − Mean)·EVᵀ, / meanVec,
-min-max to [-1,1]; and the one-time fit `fit_block_pca` that training
-runs on its first batch (host numpy in float64, as fldrx fits).
+min-max to [-1,1]; the one-time fit `fit_block_pca` that training
+runs on its first batch (host numpy in float64, as fldrx fits); and its
+inverse `pca_inverse`, which the PCA diagnostics use.
 
 Channel order (checkpoint contract): feature channel = c·2nf + t·nf + comp.
 The min-max uses `amin`/`amax`, whose gradient splits evenly among tied
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 __all__ = ["block_pca_features", "blocks_from_images", "fit_block_pca",
-           "pca_projection", "PCAState"]
+           "pca_inverse", "pca_projection", "PCAState"]
 
 
 @dataclasses.dataclass
@@ -103,3 +104,32 @@ def block_pca_features(frames: torch.Tensor, mean: torch.Tensor,
         ma = feat.amax()
     feat = (feat - mi) / (ma - mi)
     return feat * 2.0 - 1.0
+
+
+def pca_inverse(feats: torch.Tensor, mean: torch.Tensor, ev: torch.Tensor,
+                mean_vec: Optional[torch.Tensor] = None, wiS: int = 8,
+                minmax: Optional[tuple] = None) -> torch.Tensor:
+    """Components → blocks → image, the inverse of the block-PCA transform
+    (the diagnostics path), in float32 with a full-precision product.
+
+    feats [..., hb, wb, n_comp] of one channel image; `minmax` (mi, ma)
+    first undoes the [-1,1] normalisation, `mean_vec` the mean-|component|
+    scaling. Returns [..., hb·wiS, wb·wiS]."""
+    x = torch.as_tensor(feats).float()
+    if minmax is not None:
+        mi, ma = minmax
+        x = (x + 1.0) * 0.5 * (ma - mi) + mi
+    if mean_vec is not None:
+        x = x * torch.as_tensor(mean_vec, device=x.device).float()
+    ev = torch.as_tensor(ev, device=x.device).float()
+    # full float32, as fldrx's Precision.HIGHEST, whatever the caller set
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        blocks = torch.einsum("...n,nk->...k", x, ev)
+    finally:
+        torch.set_float32_matmul_precision(prec)
+    blocks = blocks + torch.as_tensor(mean, device=x.device).float()
+    *lead, hb, wb, _ = blocks.shape
+    blocks = blocks.reshape(*lead, hb, wb, wiS, wiS).movedim(-2, -3)
+    return blocks.reshape(*lead, hb * wiS, wb * wiS)

@@ -1,20 +1,25 @@
-"""Data-parallel training on `torch.distributed`: one process per place of
-the mesh's dp axis, each taking its shard of the global batch (the
-counterpart of fldrx's `make_train_step(cfg, mesh)`, where XLA inserts the
-same reductions).
+"""Data-parallel and width-sharded training on `torch.distributed`: one
+process per place (i, j) of a (dp, sp) mesh, world rank i·sp + j (the
+counterpart of fldrx's `make_train_step(cfg, mesh)`, where XLA's
+partitioner splits the step).
 
-What couples the shards, each reduction built on `all_reduce` (gloo serves
-only broadcast and all_reduce for CUDA tensors, and two ranks on one card
-need gloo):
+Every process takes dp shard i of the global batch at its full width. The
+pyramid, the PCA features, the flow recurrence, the coarse levels'
+synthesis and level 0's warps run alike on the sp processes of a shard;
+level 0's refine UNet, six-way blend and reconstruction loss run on width
+slab j (`slab_columns`) plus the UNet's halo (model/fldrnet.py
+`UNET_HALO`). Each process's loss is its part (train/losses.py
+`LossShard`): the level-0 slab's share, and the other terms on process
+j = 0 alone, so that they enter once.
 
-- the block-PCA min and max are the whole batch's: `group_minmax` reduces
-  them over the group, and their gradient is summed over the ranks and
-  routed to the rank that holds the extremum, split evenly among tied
-  elements, as jax's min/max route it;
-- the loss terms are plain means over equal shards, so the whole batch's
-  loss is the mean over the group; the PSNR's MSE is reduced before the
-  log (train/losses.py);
-- the gradients are averaged over the group.
+What couples the processes, each reduction an `all_reduce` over the world
+(gloo serves only broadcast and all_reduce for CUDA tensors, and two ranks
+on one card need gloo):
+
+- the block-PCA min and max are the whole batch's (`group_minmax`);
+- the PSNR's squared error and pixel count are summed before the log;
+- the gradients and the metrics are summed and divided by dp: summed over
+  a width group's parts, averaged over the batch shards.
 
 `spawn` starts the ranks on one machine (`tcp://localhost:<free port>`);
 `init_from_env` joins a group that torchrun started.
@@ -27,35 +32,49 @@ import queue
 import socket
 import time
 import traceback
-from typing import Callable, List
+from typing import Callable, List, Tuple
 
 import torch
 import torch.distributed as dist
 
+from ..model.fldrnet import UNET_GRID
 from ..weights import named_leaves
 
 
-def dp_rank(mesh) -> int:
-    """This process's place on the mesh's dp axis. Raises for a mesh with
-    sp > 1, and unless the process group has one rank per dp shard."""
-    if mesh.shape["sp"] > 1:
-        raise NotImplementedError(
-            f"width-sharded (sp = {mesh.shape['sp']} > 1) training is not "
-            "ported: fldrx gets it from XLA's partitioner; use sp = 1")
+def mesh_place(mesh) -> Tuple[int, int]:
+    """This process's place (i, j) on the mesh: world rank i·sp + j.
+    Raises unless the process group has one rank per place."""
     if not dist.is_initialized():
         raise RuntimeError("data-parallel training needs a process group: "
                            "torch.distributed.init_process_group (or spawn "
                            "/ torchrun)")
-    if dist.get_world_size() != mesh.shape["dp"]:
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    if dist.get_world_size() != dp * sp:
         raise ValueError(f"{dist.get_world_size()} ranks for a mesh of dp "
-                         f"{mesh.shape['dp']}")
-    return dist.get_rank()
+                         f"{dp} × sp {sp}")
+    return divmod(dist.get_rank(), sp)
+
+
+def slab_columns(W: int, sp: int, j: int) -> Tuple[int, int]:
+    """The level-0 columns [lo, hi) that width shard j of sp makes; the
+    slabs are equal and start on the refine UNet's grid."""
+    if W % (sp * UNET_GRID):
+        raise ValueError(f"width {W} does not split into {sp} slabs of a "
+                         f"multiple of {UNET_GRID} columns")
+    w = W // sp
+    return j * w, (j + 1) * w
 
 
 class _GroupExtremum(torch.autograd.Function):
     """The group's min or max of x; the backward sums the cotangent over the
     ranks and splits it evenly among the elements, on any rank, that equal
-    the extremum."""
+    the extremum.
+
+    The sp processes of a batch shard hold the same elements, so the count
+    is sp times the batch's; but each routes its share into its own copy
+    of the features, and the gradients are summed over those copies, so
+    each element of the batch receives cotangent / (the batch's count), as
+    in one process."""
 
     @staticmethod
     def forward(ctx, x, op):
@@ -82,27 +101,28 @@ def group_minmax(feat: torch.Tensor, level: int):
     return _GroupExtremum.apply(feat, "min"), _GroupExtremum.apply(feat, "max")
 
 
-def group_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of a tensor over the group (no gradient)."""
+def group_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of a tensor over the group (no gradient)."""
     x = x.detach().clone()
     dist.all_reduce(x)
-    return x / dist.get_world_size()
+    return x
 
 
-def group_mean_dict(d):
-    """{k: the group mean of d[k]} for scalar tensors, in one all_reduce."""
+def reduce_metrics(d, dp: int):
+    """{k: the group sum of d[k] / dp} for scalar tensors, in one
+    all_reduce."""
     keys = list(d)
-    v = group_mean(torch.stack([d[k].detach().float() for k in keys]))
+    v = group_sum(torch.stack([d[k].detach().float() for k in keys])) / dp
     return {k: v[i] for i, k in enumerate(keys)}
 
 
-def average_gradients(params) -> None:
-    """Replace each .grad of `params` by its mean over the group, in one
+def reduce_gradients(params, dp: int) -> None:
+    """Replace each .grad of `params` by its group sum / dp, in one
     all_reduce."""
     grads = [p.grad for _, p in named_leaves(params) if p.grad is not None]
     if not grads:
         return
-    flat = group_mean(torch.cat([g.reshape(-1) for g in grads]))
+    flat = group_sum(torch.cat([g.reshape(-1) for g in grads])) / dp
     off = 0
     for g in grads:
         g.copy_(flat[off:off + g.numel()].view_as(g))

@@ -109,11 +109,8 @@ def _cut(x, spec: Spec, index: Dict[str, int], sizes: Dict[str, int]):
     return x
 
 
-def shard_of(mesh: Mesh, batch: Dict, i: int, j: int) -> Dict:
-    """The piece of a host batch that mesh place (i, j) holds, as tensors
-    on its device: keys of `batch_specs` by their spec, any other array
-    split over dp along its first dimension, scalars whole."""
-    specs = batch_specs()
+def _piece(mesh: Mesh, batch: Dict, i: int, j: int,
+           specs: Dict[str, Spec]) -> Dict:
     index, sizes = {"dp": i, "sp": j}, mesh.shape
     dev = mesh.devices[i, j]
     out = {}
@@ -122,6 +119,21 @@ def shard_of(mesh: Mesh, batch: Dict, i: int, j: int) -> Dict:
         spec = specs.get(k, ("dp",) if v.dim() else ())
         out[k] = _cut(v, spec, index, sizes).to(dev)
     return out
+
+
+def shard_of(mesh: Mesh, batch: Dict, i: int, j: int) -> Dict:
+    """The piece of a host batch that mesh place (i, j) holds, as tensors
+    on its device: keys of `batch_specs` by their spec, any other array
+    split over dp along its first dimension, scalars whole."""
+    return _piece(mesh, batch, i, j, batch_specs())
+
+
+def dp_shard_of(mesh: Mesh, batch: Dict, i: int, j: int) -> Dict:
+    """What mesh place (i, j) takes of a host batch in width-sharded
+    training, which splits the width inside the step: batch shard i at the
+    full width (every array split over dp along its first dimension,
+    scalars whole), as tensors on the place's device."""
+    return _piece(mesh, batch, i, j, {})
 
 
 def shard_batch(mesh: Mesh, batch: Dict) -> Dict[Tuple[int, int], Dict]:

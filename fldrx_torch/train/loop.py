@@ -7,9 +7,10 @@ optimiser state and step, and the T-optimisation stage with a fresh
 optimiser. The training set is the one cfg.dataset names (X-Train,
 Inter4K or the Vimeo triplets).
 
-With a mesh, `train` is one rank of a data-parallel run
-(parallel/distributed.py): every rank reads the same global batches and
-steps on its shard; rank 0 alone validates, writes checkpoints and logs.
+With a (dp, sp) mesh, `train` is one rank of a data-parallel and, where
+sp > 1, width-sharded run (parallel/distributed.py): every rank reads the
+same global batches and steps on its part; rank 0 alone validates, writes
+checkpoints and logs.
 
 Not ported, and refused rather than skipped: the Orbax checkpoints.
 """
@@ -95,16 +96,16 @@ def train(cfg: FLDRConfig, mesh=None,
           continue_training: bool = False, seed: int = 0,
           no_validation: bool = False, verbose: bool = True, device=None):
     """Full training run on `device` (default cuda), or with `mesh` one
-    rank's part of a data-parallel run on its mesh device (the process
-    group must exist; `device` is then unused). Returns (params,
+    rank's part of a sharded run on its mesh device (the process group
+    must exist, one rank per place of the mesh; `device` is then unused). Returns (params,
     best_psnr), best_psnr as rank 0 saw it. Without validation
     (no_validation, or no validation data) each epoch records test PSNR
     1.0, so the first epoch's checkpoint is the best one."""
     _refuse_unported(cfg)
     if mesh is not None:
-        from ..parallel.distributed import broadcast_params, dp_rank
-        rank = dp_rank(mesh)
-        dev = mesh.devices[rank, 0]
+        from ..parallel.distributed import broadcast_params, mesh_place
+        i, j = mesh_place(mesh)
+        rank, dev = i * mesh.shape["sp"] + j, mesh.devices[i, j]
         if dev.type == "cuda":
             torch.cuda.set_device(dev)      # nccl's collectives use it
         sync = broadcast_params

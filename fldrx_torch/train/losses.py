@@ -13,8 +13,9 @@ optional backward-warp losses use the plain `bwarp`, as fldrx does.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,16 +45,45 @@ def rec_loss_fn(cfg: FLDRConfig):
     return _l1
 
 
+@dataclasses.dataclass(frozen=True)
+class LossShard:
+    """What one process of a sharded train step computes of the loss
+    (parallel/distributed.py).
+
+    cols: the level-0 columns [lo, hi) its output covers, None for the
+      whole width;
+    own: 1.0 where it counts the terms on tensors that every process of its
+      width group holds alike (the coarse levels' reconstruction,
+      smoothness, the endflow warp, orthogonality), else 0.0, so that each
+      enters the sum over the processes once;
+    group_sum: the sum of a tensor over every process (no gradient)."""
+    cols: Optional[Tuple[int, int]]
+    own: float
+    group_sum: Callable[[torch.Tensor], torch.Tensor]
+
+
 def pyramid_rec_loss(cfg: FLDRConfig, out_pyramid: Sequence[torch.Tensor],
-                     target: torch.Tensor) -> torch.Tensor:
+                     target: torch.Tensor,
+                     shard: Optional[LossShard] = None) -> torch.Tensor:
     """Σ_l rec(out_l, bicubic↓target) / n_levels; target [B, H, W, 3] at
-    level-0 resolution."""
+    level-0 resolution. With `shard`, out_pyramid[0] covers shard.cols and
+    this process's part of the sum is returned."""
     f = rec_loss_fn(cfg)
     total = 0.0
     for level, out_l in enumerate(out_pyramid):
-        tgt = target if level == 0 else resize_2d(
-            target, tuple(out_l.shape[1:3]), "bicubic", cfg.align_corners)
-        total = total + cfg.rec_lambda * f(out_l, tgt)
+        if level == 0 and shard is not None and shard.cols is not None:
+            lo, hi = shard.cols
+            # the slab's mean, weighted by its share of the frame's pixels
+            term = f(out_l, target[:, :, lo:hi]) * ((hi - lo)
+                                                   / target.shape[2])
+        else:
+            tgt = target if level == 0 else resize_2d(
+                target, tuple(out_l.shape[1:3]), "bicubic",
+                cfg.align_corners)
+            term = f(out_l, tgt)
+            if shard is not None and level > 0:
+                term = shard.own * term
+        total = total + cfg.rec_lambda * term
     return total / len(out_pyramid)
 
 
@@ -172,7 +202,7 @@ def distillation_loss(unref_flow_pyramid, gtflow: torch.Tensor) -> torch.Tensor:
 
 def total_loss(cfg: FLDRConfig, fwd_out: dict, target: torch.Tensor,
                frames: torch.Tensor, t: torch.Tensor, params=None,
-               epoch=None, group_mean=None):
+               epoch=None, shard: Optional[LossShard] = None):
     """The shipped training loss and its metrics. frames [B,2,H,W,3] are
     the level-0 inputs; target [B,H,W,3]; t [B,1].
 
@@ -181,11 +211,13 @@ def total_loss(cfg: FLDRConfig, fwd_out: dict, target: torch.Tensor,
     exp(−(epochs/4 − epoch))) while epoch ≤ epochs/4; cfg.orth_loss adds
     the EV orthogonality penalty when it is at least 0.1.
 
-    Every loss term is a plain mean over the batch, so over equal shards of
-    a batch the whole batch's term is the mean of the shards' terms. The
-    PSNR is not: where the batch is split over processes, `group_mean`
-    (a mean over the group) makes its MSE the whole batch's."""
-    rec = pyramid_rec_loss(cfg, fwd_out["out_pyramid"], target)
+    With `shard` the loss and every metric but the PSNR are this process's
+    part: level 0's reconstruction over shard.cols, the other terms times
+    shard.own. Every term is a plain mean over the batch, so the batch's
+    loss is the sum of the parts over a width group, averaged over equal
+    batch shards. The PSNR is not a sum of parts: its squared error and
+    pixel count are summed over every process before the log."""
+    rec = pyramid_rec_loss(cfg, fwd_out["out_pyramid"], target, shard)
     s = cfg.scales[0]
     h, w = frames.shape[2] // s, frames.shape[3] // s
     img0_ds = resize_2d(frames[:, 0], (h, w), "bicubic", cfg.align_corners)
@@ -203,19 +235,33 @@ def total_loss(cfg: FLDRConfig, fwd_out: dict, target: torch.Tensor,
         alpha = (cfg.warp_alpha * (1.0 - math.exp(-(cfg.epochs / 4 - ep)))
                  if ep <= cfg.epochs / 4 else 0.0)
         warp = warp + alpha * warping_loss(frames, fine_up)
-    total = rec + smooth + warp
     orth = torch.zeros((), device=target.device)
+    penalty = None
     if cfg.orth_loss and params is not None:
         evs = [params["pca"]["ev"].float()]
         if not cfg.exac_one_ev:
             for k in sorted(params.get("pca_multi", {})):
                 evs.append(params["pca_multi"][k]["ev"].float())
         orth = orthogonality_loss(*evs)
-        total = total + torch.where(orth >= 0.1, orth, torch.zeros_like(orth))
+        penalty = torch.where(orth >= 0.1, orth, torch.zeros_like(orth))
+    if shard is not None:
+        smooth, warp, orth = (shard.own * v for v in (smooth, warp, orth))
+        if penalty is not None:
+            penalty = shard.own * penalty
+    total = rec + smooth + warp
+    if penalty is not None:
+        total = total + penalty
     # per-batch PSNR on [0,1]-denormed frames (data_range 1)
-    mse = torch.mean((fwd_out["out_pyramid"][0] / 2 - target / 2) ** 2)
-    if group_mean is not None:
-        mse = group_mean(mse.detach())
+    out0 = fwd_out["out_pyramid"][0]
+    if shard is None:
+        mse = torch.mean((out0 / 2 - target / 2) ** 2)
+    else:
+        if shard.cols is not None:
+            target = target[:, :, shard.cols[0]:shard.cols[1]]
+        sse, n = shard.group_sum(torch.stack([
+            torch.sum((out0.detach() / 2 - target / 2) ** 2),
+            torch.tensor(float(target.numel()), device=target.device)]))
+        mse = sse / n
     psnr = -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
     return total, {"loss": total, "rec": rec, "smooth": smooth, "warp": warp,
                    "orth": orth, "psnr": psnr}

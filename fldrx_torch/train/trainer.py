@@ -15,12 +15,12 @@ fldrx/train/trainer.py).
   increment.
 - One step: pyramid → `forward_train` → `total_loss` → backward → update.
   PyTorch runs eagerly, so the state is updated in place.
-- Data-parallel: `make_train_step(cfg, mesh)` runs in one process per dp
-  shard of the mesh (parallel/distributed.py): each rank takes its shard of
-  the global batch, the PCA min/max and the PSNR's MSE are the whole
-  batch's, and the gradients and metrics are averaged over the ranks, so
-  the step gives what the single-process step gives on the global batch.
-  A mesh with sp > 1 raises NotImplementedError.
+- Sharded: `make_train_step(cfg, mesh)` runs in one process per place of
+  a (dp, sp) mesh (parallel/distributed.py): each takes its batch shard,
+  and where sp > 1 makes level 0's refine UNet, blend and reconstruction
+  loss over its width slab; the PCA min/max and the PSNR's MSE are the
+  whole batch's, and the gradients and metrics the whole step's, so the
+  step gives what the single-process step gives on the global batch.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from ..config import FLDRConfig
 from ..eval.pipeline import build_pyramid
 from ..model.fldrnet import forward_train
 from ..weights import named_leaves, unflatten_params
-from .losses import total_loss
+from .losses import LossShard, total_loss
 
 
 def param_labels(params, cfg: FLDRConfig):
@@ -149,19 +149,21 @@ def _device_of(params) -> torch.device:
 
 
 def train_loss(cfg: FLDRConfig, params, batch: Dict[str, Any],
-               minmax=None, group_mean=None):
+               minmax=None, shard: Optional[LossShard] = None):
     """(loss, metrics) of one batch {frames [B,2,H,W,3], target [B,H,W,3],
-    t [B,1], optional epoch}, on the parameters' device. `minmax` and
-    `group_mean` make a shard's PCA extremes and PSNR the whole batch's
-    (forward_train, total_loss)."""
+    t [B,1], optional epoch}, on the parameters' device. `minmax` makes a
+    shard's PCA extremes the whole batch's (forward_train); `shard` makes
+    the loss one process's part of a sharded step's (total_loss), and
+    level 0 cover shard.cols."""
     dev = _device_of(params)
     frames = torch.as_tensor(batch["frames"]).to(dev, torch.float32)
     target = torch.as_tensor(batch["target"]).to(dev, torch.float32)
     t = torch.as_tensor(batch["t"]).to(dev, torch.float32)
     pyr = build_pyramid(frames, cfg, cfg.S_trn + 1)
-    out = forward_train(params, cfg, pyr, t, minmax=minmax)
+    out = forward_train(params, cfg, pyr, t, minmax=minmax,
+                        cols=None if shard is None else shard.cols)
     return total_loss(cfg, out, target, frames, t, params=params,
-                      epoch=batch.get("epoch"), group_mean=group_mean)
+                      epoch=batch.get("epoch"), shard=shard)
 
 
 def make_train_step(cfg: FLDRConfig, mesh=None):
@@ -169,10 +171,13 @@ def make_train_step(cfg: FLDRConfig, mesh=None):
     gradients, compute the loss, backward, update `state` in place. The
     gradients stay in each parameter's .grad until the next step.
 
-    With `mesh` (parallel.mesh.Mesh, sp = 1) the step is one rank's part of
-    a data-parallel step: `batch` is the global batch, the rank takes its dp
-    shard (parallel.mesh.batch_specs), and the gradients left in .grad and
-    the metrics returned are the group's means."""
+    With `mesh` (parallel.mesh.Mesh) the step is one process's part of a
+    sharded step, at mesh place (i, j) = divmod(world rank, sp): `batch` is
+    the global batch, the process takes dp shard i at its full width and,
+    where sp > 1, makes level 0 over width slab j (parallel/distributed.py);
+    the gradients left in .grad and the metrics returned are the whole
+    step's, so every process ends where the single-process step on the
+    global batch ends."""
     if mesh is None:
         def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
             state.optimizer.zero_grad(set_to_none=True)
@@ -184,22 +189,26 @@ def make_train_step(cfg: FLDRConfig, mesh=None):
         return step
 
     from ..parallel import distributed as D
-    from ..parallel.mesh import shard_of
+    from ..parallel.mesh import dp_shard_of
 
-    rank = D.dp_rank(mesh)
+    i, j = D.mesh_place(mesh)
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
 
-    def dp_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+    def mesh_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        local = shard_of(mesh, batch, rank, 0)
+        local = dp_shard_of(mesh, batch, i, j)
+        cols = (D.slab_columns(local["frames"].shape[3], sp, j)
+                if sp > 1 else None)
+        shard = LossShard(cols=cols, own=1.0 if j == 0 else 0.0,
+                          group_sum=D.group_sum)
         loss, metrics = train_loss(cfg, state.params, local,
-                                   minmax=D.group_minmax,
-                                   group_mean=D.group_mean)
+                                   minmax=D.group_minmax, shard=shard)
         loss.backward()
-        D.average_gradients(state.params)
+        D.reduce_gradients(state.params, dp)
         state.apply_gradients()
         psnr = metrics.pop("psnr").detach()
-        out = D.group_mean_dict(metrics)
+        out = D.reduce_metrics(metrics, dp)
         out["psnr"] = psnr
         return out
 
-    return dp_step
+    return mesh_step

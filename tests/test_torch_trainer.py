@@ -264,9 +264,9 @@ def test_train_refuses_what_is_not_ported(tmp_path):
                                     text_dir=str(tmp_path / "tx"))
     with pytest.raises(NotImplementedError, match="Orbax"):
         tloop.train(cfg.replace(use_orbax=True), device="cpu")
-    # the Vimeo triplets are ported now; width-sharded training is not
+    # width-sharded training is ported; it needs one rank per mesh place
     from fldrx_torch.parallel.mesh import make_mesh
-    with pytest.raises(NotImplementedError, match="sp = 2"):
+    with pytest.raises(RuntimeError, match="process group"):
         tloop.train(cfg, mesh=make_mesh(["cpu", "cpu"], dp=1, sp=2),
                     no_validation=True, device="cpu")
 
