@@ -5,6 +5,7 @@ PyTorch version at the shapes its paths give it, drives the paths the port
 has — papermodel_test5 ×8 interpolation with a bf16 refine UNet,
 papermodel training, the PWC-Net teacher, the golden-clip evaluation, the
 multi-device evaluation, data-parallel and width-sharded training, the
+PNG decoder, asynchronous checkpoints, the probes and the roofline, the
 tools and the bench — through their entry points (the evaluator's among
 them), and checks what comes out.
 
@@ -139,6 +140,24 @@ script exits non-zero:
      halo (each rank's UNet input width printed and required), with the
      bars of (d); ms per step and peak memory per rank (four processes
      time-share one card: overhead, not scaling).
+  9. the last modules. (a) The PNG decoder (data/native.py): the native
+     library's build, and where it cannot be built (no libpng) the error
+     naming why; with PIL hidden, the named NoPNGDecoder; then the 4K
+     golden pair's 8-bit frames written as an X-Test scene (the script's
+     own zlib PNG writer; the 24 files ×8 does not read are 1×1), each
+     decoded bit for bit, ms per 4K frame at 1 and 3 threads, and
+     evaluate() through get_test_dataset("X-Test") within 1e-4 dB of 7d,
+     decoding exactly 9 frames for the pair. (b) Asynchronous checkpoints
+     at 5b's recipe: 5 timed steps each with an AsyncSaveManager save
+     after every step, with a SaveManager save and with none, ms per step
+     printed, with the save() calls' ms and a synchronous snapshot's;
+     three saves into their own managers, each file equal bit for bit to
+     the snapshot taken at its save() while the next step updates the
+     parameters in place, and a resume from the last equal to the state
+     saved. (c) tools/perfprobe.py and tools/perfprobe2.py on bench.py's
+     4K pair, then tools/roofline.py with perfprobe2's record: every
+     stage's floor at or below its in-context span (the card's time in its
+     calls), the floor's share of each span and ablation delta printed.
   10. the tools: eval.profiling's time_levels (S_tst 1-5) and fps_meter
      on bench.py's 4K pair in the deploy mix, one t, and a trace whose
      Chrome trace names the gather, splat and conv3x3 kernels;
@@ -169,23 +188,11 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# Published dense peaks by H100 variant (NVIDIA data sheets): memory
-# bytes/s, bf16 tensor-core flop/s, f32 flop/s outside the tensor cores.
-PEAKS = {
-    "PCIe": (2.0e12, 756e12, 51e12),
-    "SXM": (3.35e12, 989e12, 67e12),
-}
-
-
-def peaks_for(name: str):
-    variant = "PCIe" if "PCIe" in name else "SXM"
-    return variant, PEAKS[variant]
-
-
-def bound_ms(peaks, nbytes: float, flops: float, flop_rate: float):
-    t_bytes = nbytes / peaks[0] * 1e3
-    t_ops = flops / flop_rate * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound(peaks, kernel: str, *shape):
+    """(bound ms, what bounds it) of a kernel at its shape, from
+    fldrx_torch.tools.roofline, the one spec of the card."""
+    from fldrx_torch.tools import roofline
+    return roofline.kernel_bound(peaks, getattr(roofline, kernel)(*shape))
 
 
 def median_ms(fn, n: int = 20, setup=None) -> float:
@@ -435,9 +442,7 @@ def gather_row(peaks, g, label, B, H, W, C, mask, coarse, px):
     route = fastwarp._route(C, img.data_ptr(), out.data_ptr())
     launch = bare_launch("fldrx_gather_f32", img, sx, sy, out, B, H, W, C, H,
                          W, int(mask), route)
-    n = B * H * W
-    b, by = bound_ms(peaks, 4 * (2 * n * C + 2 * n), n * (7 * C + 12),
-                     peaks[2])
+    b, by = bound(peaks, "gather", B, H, W, C)
     return dict(
         shape=f"{label}: img {B}x{H}x{W}x{C} f32, mask "
               f"{'on' if mask else 'off'}",
@@ -471,9 +476,7 @@ def splat_row(peaks, g, label, B, H, W, C, coarse, px):
     route = fastwarp._route(C, vals.data_ptr(), out.data_ptr())
     launch = bare_launch("fldrx_splat_f32", vals, tx, ty, out, B, H, W, C,
                          route)
-    n = B * H * W
-    b, by = bound_ms(peaks, 4 * (2 * n * C + 2 * n), n * (8 * C + 10),
-                     peaks[2])
+    b, by = bound(peaks, "splat", B, H, W, C)
     return dict(
         shape=f"{label}: vals {B}x{H}x{W}x{C} f32",
         kernel_route=("scalar", "vec4")[route], max_abs_err=err,
@@ -549,10 +552,7 @@ def gather_grad_row(peaks, g, label, B, H, W, C, mask, want_img, offset,
     img_nchw = img.permute(0, 3, 1, 2).contiguous()
     cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
     grid = grid_of(sx, sy, H, W)
-    n = B * H * W
-    # img and g read, dimg written; sx, sy read, dsx, dsy written
-    b, by = bound_ms(peaks, 4 * (n * C * (2 + want_img) + 4 * n),
-                     n * ((26 if want_img else 18) * C + 20), peaks[2])
+    b, by = bound(peaks, "gather_grad", B, H, W, C, want_img)
     return dict(
         shape=f"{label}: img {B}x{H}x{W}x{C} f32, mask "
               f"{'on' if mask else 'off'}",
@@ -595,11 +595,7 @@ def splat_grad_row(peaks, g, label, B, H, W, C, coords, coarse, px):
                          torch.empty_like(ty) if coords else None, B, H, W, C)
     cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
     grid = grid_of(tx, ty, H, W)
-    n = B * H * W
-    # g read, dvals written, tx, ty read; with coords vals read, dtx, dty
-    # written
-    b, by = bound_ms(peaks, 4 * (n * C * (2 + coords) + 2 * n * (1 + coords)),
-                     n * ((25 if coords else 7) * C + 12), peaks[2])
+    b, by = bound(peaks, "splat_grad", B, H, W, C, coords)
     return dict(
         shape=f"{label}: vals {B}x{H}x{W}x{C} f32", max_abs_err=max(errs),
         ms=median_ms(lambda: fastwarp.splat_grad(vals, tx, ty, cot, coords)),
@@ -689,7 +685,7 @@ def check_interleave(dev, peaks, results):
     torch.cuda.synchronize()
     if not torch.equal(got, ref):
         raise AssertionError("interleave disagrees with its plain version")
-    b, by = bound_ms(peaks, 2 * 4 * B * H * WC, 0, peaks[2])
+    b, by = bound(peaks, "interleave", B, H, WC)
     results["interleave"] = dict(
         name="interleave", route="cuda", source="fldrx_torch/csrc/repack.cu",
         replaces="fldrx/ops/repack.py:77", also_replaces="fldrx/ops/repack.py:102",
@@ -753,8 +749,7 @@ def conv_row(peaks, x, w, bias, label):
     x_cl = x.permute(0, 3, 1, 2)                 # channels-last NCHW view
     w_cl = w.contiguous(memory_format=torch.channels_last)
     b16 = bias.to(torch.bfloat16)
-    nbytes = 2 * (H * W * Cin + 9 * Cin * K + H * W * K) + 4 * K
-    b, by = bound_ms(peaks, nbytes, 2.0 * H * W * K * Cin * 9, peaks[1])
+    b, by = bound(peaks, "conv3x3", H, W, Cin, K)
     return dict(
         shape=f"{label} x 1x{H}x{W}x{Cin} bf16 -> {K}", max_abs_err=err,
         rel_l2_err=rel,
@@ -829,7 +824,7 @@ def check_deinterleave(dev, peaks, results):
         raise AssertionError("deinterleave disagrees with its plain version")
     if not torch.equal(repack.interleave_planes(got), rows):
         raise AssertionError("interleave_planes(extract_planes(x)) != x")
-    b, by = bound_ms(peaks, 2 * 4 * B * H * WC, 0, peaks[2])
+    b, by = bound(peaks, "deinterleave", B, H, WC)
     results["deinterleave"] = dict(
         name="deinterleave", route="cuda",
         source="fldrx_torch/csrc/repack.cu",
@@ -921,9 +916,7 @@ def correlation_row(peaks, g, label, B, H, W, C):
     if not torch.equal(out, got):
         raise AssertionError(f"correlation {label}: the bare launch differs "
                              "from the wrapper's")
-    px = B * H * W
-    b, by = bound_ms(peaks, 4 * (2 * px * C + 81 * px),
-                     81 * px * (2 * C + 1), peaks[2])
+    b, by = bound(peaks, "correlation", B, H, W, C)
     return dict(
         ms=median_ms(lambda: correlation.correlation(f1, f2)),
         kernel_ms=median_ms(bare), device_ms=queued_ms(bare),
@@ -1830,6 +1823,341 @@ def mesh_train_step(card: str, dp: int, sp: int, phase_name: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the last modules — the PNG decoder, asynchronous checkpoints, the
+# probes and the roofline
+# ---------------------------------------------------------------------------
+
+def write_png(path: str, rgb: np.ndarray, level: int = 6) -> None:
+    """Write an [H, W, 3] uint8 (8-bit) or uint16 (16-bit) array as an RGB
+    PNG with zlib alone: IHDR, one IDAT of filter-0 rows, IEND."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    depth = 16 if rgb.dtype == np.uint16 else 8
+    rows = np.ascontiguousarray(rgb, ">u2" if depth == 16 else np.uint8)
+    rows = rows.reshape(h, -1).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 2, 0,
+                                             0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, level))
+                + chunk(b"IEND", b""))
+
+
+def write_x_test(root: str, frames: np.ndarray, gts: np.ndarray) -> dict:
+    """The golden pair as an X-Test scene, root/Type1/golden/0000..0032.png:
+    at ×8 make_x_test_items reads files 0 (I0), 32 (I1) and 4, 8, …, 28 (the
+    targets); the other 24 files are 1×1 placeholders. frames and gts in
+    [-1, 1] as the golden clip renders them; returns the 9 uint8 BGR
+    frames by file index."""
+    from fldrx_torch.eval.goldenclip import to_uint8_frames
+
+    d = os.path.join(root, "Type1", "golden")
+    os.makedirs(d)
+    u8 = {0: to_uint8_frames(frames[0, 0]), 32: to_uint8_frames(frames[0, 1])}
+    for k, gt in enumerate(gts):
+        u8[4 * (k + 1)] = to_uint8_frames(gt)
+    blank = np.zeros((1, 1, 3), np.uint8)
+    for i in range(33):
+        # a PNG holds RGB; the arrays are BGR, as the decoder returns them
+        write_png(os.path.join(d, f"{i:04d}.png"),
+                  u8[i][..., ::-1] if i in u8 else blank)
+    return u8
+
+
+def decoder_on_card(card: str, golden):
+    """9a: the PNG decoder on the card's host. The native library's build
+    (it needs a C++ compiler and libpng) and the error that names why it
+    cannot be built; without PIL, the named NoPNGDecoder; then the golden
+    4K pair as an X-Test tree: each frame decoded bit for bit, ms per 4K
+    frame at 3 frames a call on 1 and 3 threads, and evaluate() through
+    get_test_dataset("X-Test") within 1e-4 dB of 7d, decoding exactly 9
+    frames for the pair."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from fldrx_torch.api import prepare_model
+    from fldrx_torch.bench_inputs import deploy_config
+    from fldrx_torch.data import native
+    from fldrx_torch.data.datasets import get_test_dataset
+    from fldrx_torch.eval.evaluator import evaluate
+
+    frames, ts, gts, psnr_7d = golden
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        lib = native.get_lib()
+    warned = [str(w.message) for w in caught]
+    rec = {"phase": "decoder", "native_built": lib is not None,
+           "png_h": os.path.exists("/usr/include/png.h"),
+           "build_error": (native.build_error() or "")[-600:],
+           "warnings": [w[-300:] for w in warned], "card": card}
+    if lib is None and "png" not in rec["build_error"]:
+        raise AssertionError(f"decoder: the build failed, not for libpng: "
+                             f"{rec['build_error']}")
+    saved = sys.modules.get("PIL", False)
+    sys.modules["PIL"] = None                      # as where PIL is missing
+    try:
+        native.read_bgr(os.devnull)
+        raise AssertionError("decoder: no NoPNGDecoder without PIL")
+    except native.NoPNGDecoder as e:
+        rec["error_without_pil"] = str(e)[-300:]
+    finally:
+        if saved is False:
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = saved
+    root = tempfile.mkdtemp()
+    try:
+        t0 = time.time()
+        u8 = write_x_test(root, frames, gts)
+        rec["write_s"] = time.time() - t0
+        d = os.path.join(root, "Type1", "golden")
+        paths = {i: os.path.join(d, f"{i:04d}.png") for i in u8}
+        try:
+            got = native.read_bgr_batch([paths[i] for i in sorted(u8)])
+        except native.NoPNGDecoder as e:          # neither decoder here
+            rec["no_decoder"] = str(e)[-300:]
+            print(json.dumps(rec), flush=True)
+            return rec
+        rec["decoder"] = native.decoder_in_use()
+        rec["bit_exact"] = all(np.array_equal(g, u8[i])
+                               for g, i in zip(got, sorted(u8)))
+        three = [paths[i] for i in (0, 4, 8)]
+        for threads in (1, 3):
+            native.read_bgr_batch(three, threads)
+            t0 = time.perf_counter()
+            native.read_bgr_batch(three, threads)
+            rec[f"ms_per_frame_threads_{threads}"] = \
+                (time.perf_counter() - t0) / 3 * 1e3
+        cfg = deploy_config().replace(x_test_data_path=root)
+        interp = prepare_model(cfg=cfg, device="cuda")[0]
+        ds = get_test_dataset(cfg, "X-Test", 8)
+        reset_launches()
+        t0 = time.time()
+        res = evaluate(interp, cfg, "X-Test", multiple=8, dataset=ds,
+                       verbose=False)
+        rec.update(evaluate_s=time.time() - t0, launches=launches(),
+                   psnr=res.psnr, ssim=res.ssim, psnr_7d=psnr_7d,
+                   diff_db=res.psnr - psnr_7d, n_samples=res.n_samples,
+                   frames_decoded=ds.frames_decoded,
+                   decoder_in_evaluate=native.decoder_in_use())
+    finally:
+        shutil.rmtree(root)
+    print(json.dumps(rec), flush=True)
+    if not rec["bit_exact"]:
+        raise AssertionError("decoder: a decoded frame differs from the "
+                             "array written")
+    if lib is not None and rec["decoder"] != "native":
+        raise AssertionError(f"decoder: built, but {rec['decoder']} ran")
+    require_launched(rec["launches"], EVAL_KERNELS, "evaluate on X-Test")
+    require_counts(rec["launches"], PER_PAIR, 1, "evaluate on X-Test")
+    if not (res.n_samples == len(ts) and ds.frames_decoded == 9):
+        raise AssertionError(f"decoder: evaluate scored {res.n_samples} "
+                             f"frames and decoded {ds.frames_decoded}, "
+                             f"expected {len(ts)} and 9")
+    if not abs(rec["diff_db"]) <= 1e-4:
+        raise AssertionError(f"decoder: evaluate on the X-Test tree "
+                             f"{res.psnr} dB, phase 7d {psnr_7d}")
+    return rec
+
+
+def npz_write_ms(blob: dict, d: str) -> dict:
+    """The median of 3 writes of a checkpoint's arrays: np.savez into a
+    file, against np.savez into memory and one write of the whole."""
+    import io
+
+    def median(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    buf = io.BytesIO()
+
+    def in_memory():
+        buf.seek(0)
+        buf.truncate()
+        np.savez(buf, **blob)
+
+    def whole():
+        with open(os.path.join(d, "whole.npz"), "wb") as f:
+            f.write(buf.getbuffer())
+
+    return {"savez_to_file_ms": median(
+                lambda: np.savez(os.path.join(d, "direct.npz"), **blob)),
+            "savez_in_memory_ms": median(in_memory),
+            "write_whole_ms": median(whole),
+            "checkpoint_mb": sum(v.nbytes for v in blob.values()) / 1e6,
+            "arrays": len(blob)}
+
+
+def async_checkpoints(card: str, dev: str = "cuda"):
+    """9b: 5b's recipe (batch 8, 512×512, S_trn=3, fresh parameters with
+    the PCA fit on the first batch), one warm-up step, then 5 timed steps
+    three times: with an AsyncSaveManager save after every step, with a
+    SaveManager save, and with none (each step reads its loss and saves
+    TrainState.optimizer_tensors(), as train() does); the save() calls'
+    median ms, a synchronous `snapshot`'s, and npz_write_ms. Every
+    asynchronous file equals a snapshot taken at its save() bit for bit,
+    parameters and optimiser state, while the next steps update the
+    parameters in place; a resume from the last one equals the state
+    saved."""
+    import tempfile
+
+    import torch
+
+    from fldrx_torch.bench_inputs import train_batch, train_config
+    from fldrx_torch.model.fldrnet import init_params
+    from fldrx_torch.train.checkpoint import (AsyncSaveManager, SaveManager,
+                                              snapshot)
+    from fldrx_torch.train.loop import assign_params, fit_pca_from_batch
+    from fldrx_torch.train.trainer import TrainState, make_train_step
+    from fldrx_torch.weights import (flatten_params, params_from_numpy,
+                                     params_to_numpy)
+
+    cfg = train_config()
+    B, S = cfg.batch_size, cfg.patch_size
+    gen = torch.Generator().manual_seed(0)
+    batches = []
+    for i in range(6):
+        b = train_batch(S, draw_t(gen, B), seed=200 + i)
+        batches.append({k: torch.as_tensor(v).to(dev) for k, v in b.items()})
+    params = init_params(torch.Generator().manual_seed(0), cfg, dev)
+    assign_params(params, fit_pca_from_batch(
+        batches[0]["frames"].cpu().numpy(), cfg, dev))
+    state = TrainState.create(params, cfg)
+    step = make_train_step(cfg)
+    float(step(state, batches[0])["loss"])                    # warm-up
+    torch.cuda.synchronize()
+    rec = {"phase": "async_checkpoints", "hw": [S, S], "batch": B,
+           "S_trn": cfg.S_trn, "steps": 5, "card": card}
+    with tempfile.TemporaryDirectory() as d:
+        def manager(kind, name):
+            return kind(cfg.replace(checkpoint_dir=os.path.join(d, name),
+                                    text_dir=os.path.join(d, "tx")))
+
+        sms = {"none": None, "sync": manager(SaveManager, "sync"),
+               "async": manager(AsyncSaveManager, "async")}
+        for name, sm in sms.items():
+            calls = []
+            t0 = time.perf_counter()
+            for i, b in enumerate(batches[1:]):
+                float(step(state, b)["loss"])
+                if sm is not None:
+                    t1 = time.perf_counter()
+                    sm.save(state.params, {"last_epoch": i},
+                            opt_state=state.optimizer_tensors(),
+                            step=state.step)
+                    calls.append((time.perf_counter() - t1) * 1e3)
+            torch.cuda.synchronize()
+            rec[f"ms_per_step_{name}"] = (time.perf_counter() - t0) / 5 * 1e3
+            if calls:
+                rec[f"save_call_ms_{name}"] = float(np.median(calls))
+        t0 = time.perf_counter()
+        sms["async"].close()
+        rec["close_wait_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        blob = snapshot(state.params, {}, state.optimizer_tensors(),
+                        state.step)
+        rec["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+        rec.update(npz_write_ms(blob, d))
+
+        # each save into its own manager, its snapshot taken at save(),
+        # the next step running while the writer writes
+        saves = []
+        for i, b in enumerate(batches[1:4]):
+            sm = manager(AsyncSaveManager, f"each{i}")
+            meta = {"last_epoch": i}
+            sm.save(state.params, meta, opt_state=state.optimizer_tensors(),
+                    step=state.step)
+            saves.append((sm, snapshot(state.params, meta,
+                                       state.optimizer_state(), state.step)))
+            float(step(state, b)["loss"])
+        mismatched = []
+        for sm, want in saves:
+            sm.close()
+            with np.load(sm._path("latest")) as z:
+                if set(z.files) != set(want) or not all(
+                        np.array_equal(z[k], want[k]) for k in want):
+                    mismatched.append(sm.ckpt_dir)
+        rec["files_equal_snapshots"] = not mismatched
+        rec["files_checked"] = len(saves)
+        tree, meta, opt = saves[-1][0].load()
+        resumed = TrainState.create(params_from_numpy(tree, dev), cfg)
+        resumed.load_optimizer_state(opt, int(meta["step"]))
+        again = snapshot(resumed.params, {"last_epoch": 2},
+                         resumed.optimizer_state(), resumed.step)
+        want = saves[-1][1]
+        rec["resume_equal"] = set(again) == set(want) and all(
+            np.array_equal(again[k], want[k]) for k in want)
+        rec["params_moved_after_save"] = any(
+            not np.array_equal(v, want[f"params/{k}"]) for k, v in
+            flatten_params(params_to_numpy(state.params)).items())
+    print(json.dumps(rec), flush=True)
+    if mismatched:
+        raise AssertionError(f"async checkpoints differ from their "
+                             f"snapshots: {mismatched}")
+    if not (rec["resume_equal"] and rec["params_moved_after_save"]):
+        raise AssertionError("async checkpoints: the resume differs from "
+                             "the state saved, or the steps after it did "
+                             "not move the parameters")
+    return rec
+
+
+def probes_and_roofline(card: str):
+    """9c: tools/perfprobe.py and tools/perfprobe2.py on bench.py's 4K pair
+    on the card, then tools/roofline.py with perfprobe2's record: every
+    stage perfprobe2 reaches has a floor at or below its in-context span,
+    the card's time in its calls within the whole pipeline (a floor above
+    it is a miscount); the floor's share of each stage's span and of its
+    ablation delta (what the pipeline pays for it) is printed."""
+    import tempfile
+
+    from fldrx_torch.tools import perfprobe, perfprobe2, roofline
+
+    t0 = time.time()
+    probe = perfprobe.run()
+    probe_s = time.time() - t0
+    print(json.dumps(probe), flush=True)
+    t0 = time.time()
+    probe2 = perfprobe2.run()
+    probe2_s = time.time() - t0
+    print(json.dumps(probe2), flush=True)
+    variant = roofline.peaks_for(card)[0]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "perfprobe2.json")
+        with open(path, "w") as f:
+            json.dump(probe2, f)
+        roofline.main(["--chip", variant, "--measured", path])
+    rep = roofline.report(variant, tuple(probe2["hw"]), probe2)
+    shares = {k: r["share_of_floor"] for k, r in rep["stages"].items()}
+    spans = {k: r["share_of_span"] for k, r in rep["stages"].items()}
+    over = {k: (r["floor_ms"], r["span_ms"])
+            for k, r in rep["stages"].items()
+            if r["span_ms"] is not None and not r["floor_ms"] <= r["span_ms"]}
+    print(json.dumps({"phase": "probes_and_roofline", "perfprobe_s": probe_s,
+                      "perfprobe2_s": probe2_s, "share_of_floor": shares,
+                      "share_of_span": spans,
+                      "floor_ms_per_frame": rep["floor_ms_per_frame"],
+                      "floor_above_measured": over, "card": card}),
+          flush=True)
+    if over:
+        raise AssertionError(f"roofline: floors above their in-context "
+                             f"times (a miscount): {over}")
+    return rep
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the tools on the card
 # ---------------------------------------------------------------------------
 
@@ -1967,7 +2295,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    variant, peaks = peaks_for(card)
+    from fldrx_torch.tools import roofline
+    variant, peaks = roofline.peaks_for(card)
     print(f"card: {card} ({variant} peaks); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
@@ -1986,11 +2315,14 @@ def main() -> int:
     seen_t, seen_sp = phase("8ab parallel evaluation 4K", parallel_eval_4k,
                             card)
     phase("8c parallel evaluate", parallel_evaluate, card, golden)
-    del golden
     phase("8d data-parallel step", mesh_train_step, card, 2, 1,
           "dp_train_step")
     seen_sp_train = phase("8e width-sharded step", mesh_train_step, card, 2,
                           2, "sp_train_step")
+    phase("9a PNG decoder", decoder_on_card, card, golden)
+    del golden
+    phase("9b asynchronous checkpoints", async_checkpoints, card)
+    phase("9c probes and roofline", probes_and_roofline, card)
     phase("10 tools", tools_on_card, card)
     bench_rec = phase("bench", bench_line)
     # launches: the count of the path the row is timed for (the 4K pairs

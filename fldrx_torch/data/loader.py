@@ -1,6 +1,7 @@
 """Host-side training batches and test items with background prefetch
-(counterpart of fldrx/data/loader.py): a thread pool decodes PNGs (PIL
-releases the GIL while decoding) while the card computes.
+(counterpart of fldrx/data/loader.py): a thread pool decodes PNGs (the
+native decoder and PIL release the GIL while decoding) while the card
+computes.
 """
 
 from __future__ import annotations

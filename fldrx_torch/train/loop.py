@@ -12,7 +12,10 @@ sp > 1, width-sharded run (parallel/distributed.py): every rank reads the
 same global batches and steps on its part; rank 0 alone validates, writes
 checkpoints and logs.
 
-Not ported, and refused rather than skipped: the Orbax checkpoints.
+cfg.use_orbax picks the asynchronous checkpoints (train/checkpoint.py
+AsyncSaveManager, the counterpart of fldrx's Orbax manager): each epoch's
+checkpoint is copied to host memory and written while the next epoch
+trains.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from ..ops.block_pca import fit_block_pca
 from ..ops.resize import resize_2d
 from ..utils.tbevents import EventWriter
 from ..weights import named_leaves, params_from_numpy
-from .checkpoint import SaveManager
+from .checkpoint import AsyncSaveManager, SaveManager
 from .trainer import TrainState, make_train_step
 
 
@@ -86,11 +89,6 @@ def assign_params(params, subtree) -> None:
         raise KeyError(f"no such parameters: {sorted(new)}")
 
 
-def _refuse_unported(cfg: FLDRConfig) -> None:
-    if cfg.use_orbax:
-        raise NotImplementedError("Orbax checkpoints are not ported")
-
-
 def train(cfg: FLDRConfig, mesh=None,
           max_steps_per_epoch: Optional[int] = None,
           continue_training: bool = False, seed: int = 0,
@@ -100,8 +98,10 @@ def train(cfg: FLDRConfig, mesh=None,
     must exist, one rank per place of the mesh; `device` is then unused). Returns (params,
     best_psnr), best_psnr as rank 0 saw it. Without validation
     (no_validation, or no validation data) each epoch records test PSNR
-    1.0, so the first epoch's checkpoint is the best one."""
-    _refuse_unported(cfg)
+    1.0, so the first epoch's checkpoint is the best one. With
+    cfg.use_orbax the checkpoints are written in the background; unlike
+    fldrx, train() waits for the last write before it returns, so the files
+    exist when it does."""
     if mesh is not None:
         from ..parallel.distributed import broadcast_params, mesh_place
         i, j = mesh_place(mesh)
@@ -114,7 +114,7 @@ def train(cfg: FLDRConfig, mesh=None,
     lead = rank == 0
     verbose = verbose and lead
     no_validation = no_validation or not lead
-    SM = SaveManager(cfg)
+    SM = AsyncSaveManager(cfg) if cfg.use_orbax and lead else SaveManager(cfg)
     if lead:
         SM.write_config()
     dataset = get_train_dataset(cfg)
@@ -158,76 +158,84 @@ def train(cfg: FLDRConfig, mesh=None,
               f"epochs {start_epoch}..{cfg.epochs - 1}")
         SM.write_info("Epoch\ttrainLoss\tWarpLoss\tValLoss\ttestPSNR\tbest_PSNR")
 
-    for epoch in range(start_epoch, cfg.epochs):
-        losses, warp_loss, batch_psnr = Meter(), Meter(), Meter()
-        t_epoch = time.time()
-        for i, batch in enumerate(train_batches(dataset, cfg.batch_size,
-                                                seed, epoch)):
-            if i >= steps_per_epoch:
-                break
-            if not pca_fitted:
-                assign_params(state.params,
-                              fit_pca_from_batch(batch["frames"], cfg, dev))
-                if sync:
-                    sync(state.params)
-                pca_fitted = True
-            batch["epoch"] = np.float32(epoch)
-            m = step_fn(state, batch)
-            losses.update(float(m["loss"]))
-            warp_loss.update(float(m["warp"]))
-            batch_psnr.update(float(m["psnr"]))
-            if i % cfg.freq_display == 0:
-                if verbose:
-                    print(f"Epoch [{epoch}][{i}/{steps_per_epoch}] "
-                          f"loss {losses.avg:.4e} warp {warp_loss.avg:.4e} "
-                          f"PSNR {batch_psnr.avg:.2f}")
-                if cfg.save_images and lead:
-                    _dump_pyramid(cfg, state.params, batch, epoch, i, dev)
-        if verbose:
-            print(f"Time needed for epoch (min): "
-                  f"{(time.time() - t_epoch) / 60:.2f}")
+    try:
+        for epoch in range(start_epoch, cfg.epochs):
+            losses, warp_loss, batch_psnr = Meter(), Meter(), Meter()
+            t_epoch = time.time()
+            for i, batch in enumerate(train_batches(dataset, cfg.batch_size,
+                                                    seed, epoch)):
+                if i >= steps_per_epoch:
+                    break
+                if not pca_fitted:
+                    assign_params(state.params, fit_pca_from_batch(
+                        batch["frames"], cfg, dev))
+                    if sync:
+                        sync(state.params)
+                    pca_fitted = True
+                batch["epoch"] = np.float32(epoch)
+                m = step_fn(state, batch)
+                losses.update(float(m["loss"]))
+                warp_loss.update(float(m["warp"]))
+                batch_psnr.update(float(m["psnr"]))
+                if i % cfg.freq_display == 0:
+                    if verbose:
+                        print(f"Epoch [{epoch}][{i}/{steps_per_epoch}] "
+                              f"loss {losses.avg:.4e} "
+                              f"warp {warp_loss.avg:.4e} "
+                              f"PSNR {batch_psnr.avg:.2f}")
+                    if cfg.save_images and lead:
+                        _dump_pyramid(cfg, state.params, batch, epoch, i,
+                                      dev)
+            if verbose:
+                print(f"Time needed for epoch (min): "
+                      f"{(time.time() - t_epoch) / 60:.2f}")
 
-        # validation (main.py:743-748): X-Test validation crops, multiple=4
-        test_psnr, test_loss = 1.0, 1.0
-        if not no_validation:
-            val_cfg = cfg.replace(phase="train")    # div_pad uses S_trn
-            interp = Interpolator(state.params, val_cfg, dev)
-            try:
-                res = evaluate(interp, val_cfg, "X4K1000FPS", multiple=4,
-                               validation=True, verbose=False)
-                test_psnr, test_loss = res.psnr, res.rec_loss
-            except FileNotFoundError:
-                if verbose:
-                    print("validation data unavailable — skipping validation")
-                no_validation = True
-        best = test_psnr > best_psnr
-        best_psnr = max(best_psnr, test_psnr)
-        if not lead:
-            continue
-        SM.save(state.params, {
-            "last_epoch": epoch, "batch_size": cfg.batch_size,
-            "trainLoss": losses.avg, "testLoss": test_loss,
-            "testPSNR": test_psnr, "best_PSNR": best_psnr,
-        }, opt_state=state.optimizer_state(), step=state.step, best=best,
-            epoch=epoch)
-        SM.write_info(f"{epoch}\t\t{losses.avg:.4}\t\t{warp_loss.avg:.4}\t\t"
-                      f"{test_loss:.4}\t\t{test_psnr:.4}\t\t{best_psnr:.4}")
-        with open(scalar_log, "a") as f:
-            f.write(json.dumps({
-                "epoch": epoch, "step": state.step,
-                "train_loss": losses.avg, "warp_loss": warp_loss.avg,
-                "train_psnr": batch_psnr.avg, "val_loss": test_loss,
-                "val_psnr": test_psnr, "best_psnr": best_psnr,
-            }) + "\n")
-        tb.add_scalars({
-            "Loss/train": losses.avg, "Loss/warp": warp_loss.avg,
-            "PSNR/train": batch_psnr.avg, "Loss/val": test_loss,
-            "PSNR/val": test_psnr, "PSNR/best": best_psnr,
-        }, step=state.step)
-        tb.flush()
-
-    if tb is not None:
-        tb.close()
+            # validation (main.py:743-748): X-Test validation crops at
+            # multiple=4
+            test_psnr, test_loss = 1.0, 1.0
+            if not no_validation:
+                val_cfg = cfg.replace(phase="train")    # div_pad uses S_trn
+                interp = Interpolator(state.params, val_cfg, dev)
+                try:
+                    res = evaluate(interp, val_cfg, "X4K1000FPS", multiple=4,
+                                   validation=True, verbose=False)
+                    test_psnr, test_loss = res.psnr, res.rec_loss
+                except FileNotFoundError:
+                    if verbose:
+                        print("validation data unavailable — skipping "
+                              "validation")
+                    no_validation = True
+            best = test_psnr > best_psnr
+            best_psnr = max(best_psnr, test_psnr)
+            if not lead:
+                continue
+            SM.save(state.params, {
+                "last_epoch": epoch, "batch_size": cfg.batch_size,
+                "trainLoss": losses.avg, "testLoss": test_loss,
+                "testPSNR": test_psnr, "best_PSNR": best_psnr,
+            }, opt_state=state.optimizer_tensors(), step=state.step,
+                best=best, epoch=epoch)
+            SM.write_info(f"{epoch}\t\t{losses.avg:.4}\t\t"
+                          f"{warp_loss.avg:.4}\t\t{test_loss:.4}\t\t"
+                          f"{test_psnr:.4}\t\t{best_psnr:.4}")
+            with open(scalar_log, "a") as f:
+                f.write(json.dumps({
+                    "epoch": epoch, "step": state.step,
+                    "train_loss": losses.avg, "warp_loss": warp_loss.avg,
+                    "train_psnr": batch_psnr.avg, "val_loss": test_loss,
+                    "val_psnr": test_psnr, "best_psnr": best_psnr,
+                }) + "\n")
+            tb.add_scalars({
+                "Loss/train": losses.avg, "Loss/warp": warp_loss.avg,
+                "PSNR/train": batch_psnr.avg, "Loss/val": test_loss,
+                "PSNR/val": test_psnr, "PSNR/best": best_psnr,
+            }, step=state.step)
+            tb.flush()
+    finally:
+        if tb is not None:
+            tb.close()
+        if isinstance(SM, AsyncSaveManager):
+            SM.close()
     return state.params, best_psnr
 
 

@@ -108,16 +108,22 @@ class TrainState:
         self.scheduler.step()
         self.step += 1
 
-    def optimizer_state(self) -> Dict[str, Dict[str, np.ndarray]]:
-        """{flat parameter name: {"exp_avg", "exp_avg_sq", "step"}} for
-        each parameter that has optimiser state."""
+    def optimizer_tensors(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{flat parameter name: {"exp_avg", "exp_avg_sq", "step"}}: the
+        optimiser's own tensors (not copies; the next update changes them
+        in place) for each parameter that has optimiser state."""
         out = {}
         for name, p in named_leaves(self.params):
             st = self.optimizer.state.get(p)
             if st:
-                out[name] = {k: v.detach().cpu().numpy().copy()
-                             for k, v in st.items() if torch.is_tensor(v)}
+                out[name] = {k: v for k, v in st.items() if torch.is_tensor(v)}
         return out
+
+    def optimizer_state(self) -> Dict[str, Dict[str, np.ndarray]]:
+        """`optimizer_tensors` copied to numpy."""
+        return {name: {k: v.detach().cpu().numpy().copy()
+                       for k, v in st.items()}
+                for name, st in self.optimizer_tensors().items()}
 
     def load_optimizer_state(
             self, flat: Optional[Dict[str, Dict[str, np.ndarray]]],

@@ -36,7 +36,7 @@ from fldrx_torch.ops import warp as twarp
 
 torch.set_num_threads(1)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 
 
 @pytest.mark.parametrize("name,expected", [
@@ -64,10 +64,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
         # rows, out, B, H, row_bytes, stream
         "fldrx_extract_planes": [_P] * 2 + [_I] * 3 + [_P],
     }),
+    ("decoder", {
+        # path, w, h
+        "fldrx_png_probe": [_P] * 3,
+        # path, out, w, h
+        "fldrx_png_decode": [_P] * 2 + [_U] * 2,
+        # paths, n, outs, w, h, threads
+        "fldrx_png_decode_batch": [_P, _I, _P, _U, _U, _I],
+    }),
 ])
 def test_entry_point_prototypes(name, expected):
     """The ctypes binding read from each source's extern "C" prototypes
-    has the arguments the wrappers in fastwarp/fastconv pass."""
+    has the arguments the wrappers in fastwarp/fastconv/repack/correlation
+    and data/native pass."""
     assert _build.prototypes(name) == expected
 
 
