@@ -6,8 +6,9 @@ has — papermodel_test5 ×8 interpolation with a bf16 refine UNet,
 papermodel training, the PWC-Net teacher, the golden-clip evaluation, the
 multi-device evaluation, data-parallel and width-sharded training, the
 PNG decoder, asynchronous checkpoints, the probes and the roofline, the
-tools and the bench — through their entry points (the evaluator's among
-them), and checks what comes out.
+tools (the parity report against the reference's oracle among them) and
+the bench — through their entry points (the evaluator's among them), and
+checks what comes out.
 
     python3 chip_smoke.py
 
@@ -169,6 +170,17 @@ script exits non-zero:
      CPU's (phase 3's bar), fast float32 against strict within 0.5 dB of
      the CPU's reading (the departure is fldrx's own algebra: 51.85 dB at
      768×1024 for both packages on the CPU), the bf16 PSNRs printed.
+  10b. parity_report's measurement 1: at 768×1280, S_tst = 5, t = 0.375,
+     against the reference's torch oracle on the CPU with the state dict
+     of the in-repo .npz (convert_ckpt.params_to_state_dict), both on one
+     pyramid, from PyTorch's default TF32 flags as the tool's command
+     starts: the strict path on the card within 1e-4 max abs (ROADMAP's
+     North star bar); fast_warp float32 and the deploy mix on the card
+     each within 0.5 dB PSNR of the same configuration on the CPU; the
+     deploy run, its launches zeroed just before and read after, launches
+     gather, splat, conv3x3 and the interleave (its output in plain rows).
+     One JSON line: max abs, mean abs and PSNR
+     of each run, the oracle's and each run's seconds, the card line.
   11. `python -m fldrx_torch.bench` once, its JSON line; a JSON line for the
      kernels, the card line, then the last line
      {"ok": true, "device": {...}}.
@@ -2257,6 +2269,69 @@ def tools_on_card(card: str):
                              f"card against CPU {card_vs_cpu}")
 
 
+# measurement 1 on the card: the strict path within ROADMAP's North star
+# bar of the reference's oracle; each fast configuration's PSNR against the
+# oracle within ORACLE_DB of its own reading on the CPU
+ORACLE_MAX_ABS = 1e-4
+ORACLE_DB = 0.5
+
+
+def oracle_on_card(card: str):
+    """10b: parity_report's measurement 1 at 768×1280, S_tst = 5, t =
+    0.375 against the reference's torch oracle on the CPU, its state dict
+    from the in-repo .npz (params_to_state_dict), started from PyTorch's
+    default TF32 flags as the tool's own command is: the strict path on
+    the card within ORACLE_MAX_ABS max abs; fast_warp float32 and the
+    deploy mix on the card each within ORACLE_DB of the same configuration
+    on the CPU; the deploy run, counted alone, launches gather, splat,
+    conv3x3 and the interleave."""
+    import torch
+
+    from fldrx_torch.bench_inputs import deploy_config
+    from fldrx_torch.tools import parity_report
+
+    strict = parity_report.strict_config()
+    fast_f32 = strict.replace(fast_warp=True)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True        # PyTorch's default
+    try:
+        card_runs = parity_report.measure_oracle(
+            {"strict": strict, "fast_f32": fast_f32}, device="cuda")
+        reset_launches()
+        deploy = parity_report.measure_oracle({"deploy": deploy_config()},
+                                              device="cuda")
+        seen = launches()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    cpu_runs = parity_report.measure_oracle(
+        {"fast_f32": fast_f32, "deploy": deploy_config()}, device="cpu")
+    card_runs["deploy"] = deploy["deploy"]
+    names = ("max_abs", "mean_abs", "psnr_db", "s")
+    print(json.dumps({
+        "phase": "oracle", "hw": card_runs["hw"], "S_tst": card_runs["S_tst"],
+        "t": parity_report.ORACLE_T, "source": card_runs["source"],
+        "card": {k: {n: card_runs[k][n] for n in names}
+                 for k in ("strict", "fast_f32", "deploy")},
+        "cpu": {k: {n: cpu_runs[k][n] for n in names}
+                for k in ("fast_f32", "deploy")},
+        "oracle_s": [card_runs["oracle_s"], deploy["oracle_s"],
+                     cpu_runs["oracle_s"]],
+        "deploy_launches": seen, "card_line": card}), flush=True)
+    strict_err = card_runs["strict"]["max_abs"]
+    if not strict_err <= ORACLE_MAX_ABS:
+        raise AssertionError(f"strict path on the card against the oracle: "
+                             f"max abs {strict_err} > {ORACLE_MAX_ABS}")
+    for k in ("fast_f32", "deploy"):
+        a, b = card_runs[k]["psnr_db"], cpu_runs[k]["psnr_db"]
+        if not abs(a - b) <= ORACLE_DB:
+            raise AssertionError(f"{k} against the oracle: {a} dB on the "
+                                 f"card, {b} dB on the CPU")
+    # the deploy run returns plain rows: its u-planes go through the
+    # interleave, as in the evaluator's device-metrics run
+    require_launched(seen, EVAL_KERNELS, "measurement 1, deploy")
+    return seen
+
+
 def bench_line():
     """`python -m fldrx_torch.bench` once; returns its JSON record."""
     out = subprocess.run([sys.executable, "-m", "fldrx_torch.bench"],
@@ -2324,6 +2399,7 @@ def main() -> int:
     phase("9b asynchronous checkpoints", async_checkpoints, card)
     phase("9c probes and roofline", probes_and_roofline, card)
     phase("10 tools", tools_on_card, card)
+    seen_oracle = phase("10b parity measurement 1", oracle_on_card, card)
     bench_rec = phase("bench", bench_line)
     # launches: the count of the path the row is timed for (the 4K pairs
     # for the forward kernels, the timed train steps for the VJP kernels,
@@ -2333,7 +2409,8 @@ def main() -> int:
     # train steps; launches_teacher: over the 5 timed teacher calls;
     # launches_eval: over that run; launches_t_parallel and launches_sp:
     # over phase 8a's and 8b's 2 timed pairs; launches_sp_train: per step
-    # of one rank of 8e (every rank launches the same)
+    # of one rank of 8e (every rank launches the same); launches_oracle:
+    # over 10b's deploy run
     path_of = {"gather_grad": seen_train, "splat_grad": seen_train,
                "correlation": seen_teacher, "interleave": seen_eval}
     for k, r in results.items():
@@ -2344,6 +2421,7 @@ def main() -> int:
         r["launches_t_parallel"] = seen_t[k]
         r["launches_sp"] = seen_sp[k]
         r["launches_sp_train"] = seen_sp_train[k]
+        r["launches_oracle"] = seen_oracle[k]
     print(json.dumps(bench_rec))
     print(f"chip_smoke: {time.time() - start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": list(results.values())}))

@@ -79,21 +79,22 @@ class TestDataset:
     the dataset and is safe for the loader's threads: a frame that another
     thread is decoding is waited for, not decoded again, and a call decodes
     its misses in one native batch on 3 threads. `frames_decoded` counts
-    the decodes."""
+    the decodes. Subclasses call `__init__` before any thread reads."""
 
     items: List[TestItem]
     CACHE_FRAMES = 12      # one ×8 pair's 9 frames plus the next pair's first
     DECODE_THREADS = 3
 
+    def __init__(self):
+        self._cache = collections.OrderedDict()
+        self._decoding = {}
+        self._lock = threading.Lock()
+        self.frames_decoded = 0
+
     def __len__(self):
         return len(self.items)
 
     def _frames(self, paths) -> np.ndarray:
-        if not hasattr(self, "_cache"):
-            self._cache = collections.OrderedDict()
-            self._decoding = {}
-            self._lock = threading.Lock()
-            self.frames_decoded = 0
         keys = []
         for p in paths:
             st = os.stat(p)
@@ -111,24 +112,31 @@ class TestDataset:
                 else:
                     mine[k] = self._decoding[k] = _Decoding()
         if mine:
+            frames, error = None, None
             try:
                 frames = native.read_bgr_batch([k[0] for k in mine],
                                                self.DECODE_THREADS)
+                if len(frames) != len(mine):
+                    raise RuntimeError(f"the decoder returned {len(frames)} "
+                                       f"frames for {len(mine)} files")
             except BaseException as e:
-                with self._lock:
-                    for k, d in mine.items():
-                        del self._decoding[k]
-                        d.error = e
-                        d.done.set()
+                error = e
                 raise
-            with self._lock:
-                self.frames_decoded += len(mine)
-                for (k, d), f in zip(mine.items(), frames):
-                    del self._decoding[k]
-                    self._cache[k] = got[k] = d.frame = f
-                    d.done.set()
-                while len(self._cache) > self.CACHE_FRAMES:
-                    self._cache.popitem(last=False)
+            finally:
+                # every entry this call registered leaves the table and
+                # wakes its waiters, with its frame or with the error
+                with self._lock:
+                    if error is None:
+                        self.frames_decoded += len(mine)
+                    for i, (k, d) in enumerate(mine.items()):
+                        del self._decoding[k]
+                        if error is None:
+                            self._cache[k] = got[k] = d.frame = frames[i]
+                        else:
+                            d.error = error
+                        d.done.set()
+                    while len(self._cache) > self.CACHE_FRAMES:
+                        self._cache.popitem(last=False)
         for k, d in waits.items():
             d.done.wait()
             if d.error is not None:
@@ -177,6 +185,7 @@ def make_x_test_items(root: str, multiple: int,
 class XTest(TestDataset):
     def __init__(self, cfg: FLDRConfig, multiple: int, validation: bool,
                  half_res: bool = False):
+        super().__init__()
         root = cfg.x_val_data_path if validation else cfg.x_test_data_path
         self.items = make_x_test_items(root, multiple)
         self.validation = validation
@@ -203,6 +212,7 @@ class XiphTest(TestDataset):
 
     def __init__(self, cfg: FLDRConfig, crop_2k: bool = False,
                  half_res: bool = False):
+        super().__init__()
         self.items = []
         self.crop_2k = crop_2k
         self.half_res = half_res          # --xiph2k (utils.py:198-199)
@@ -232,6 +242,7 @@ class Inter4KTest(TestDataset):
     MULTIPLE = 8
 
     def __init__(self, cfg: FLDRConfig, scenerange: int):
+        super().__init__()
         root = cfg.inter4k_data_path
         self.items = []
         scenes = {}
@@ -257,6 +268,7 @@ class VimeoTest(TestDataset):
     im3, target im2."""
 
     def __init__(self, cfg: FLDRConfig, validation: bool = False):
+        super().__init__()
         self.items = []
         with open(os.path.join(cfg.vimeo_data_path, "tri_testlist.txt")) as f:
             scene_paths = [ln.strip() for ln in f if ln.strip()]

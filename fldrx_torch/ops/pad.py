@@ -18,12 +18,22 @@ def pad_frames(frames: torch.Tensor, div: int,
     """Pad [B, T, H, W, C] on bottom/right so H and W are multiples of `div`.
 
     'reflect' mirrors without repeating the edge (torch F.pad 'reflect',
-    numpy/JAX pad 'reflect'); any other mode pads with zeros."""
+    numpy/JAX pad 'reflect'; a pad longer than the frame mirrors the padded
+    frame again, as numpy's and JAX's do); any other mode pads with zeros."""
     B, T, H, W, C = frames.shape
     ph, pw = pad_amount(H, div), pad_amount(W, div)
     if ph == 0 and pw == 0:
         return frames
     x = frames.reshape(B * T, H, W, C).permute(0, 3, 1, 2)
-    x = F.pad(x, (0, pw, 0, ph),
-              mode="reflect" if mode == "reflect" else "constant")
+    if mode != "reflect":
+        x = F.pad(x, (0, pw, 0, ph), mode="constant")
+    else:
+        # F.pad reflects at most size - 1 rows or columns at a time (at
+        # least 1: a frame of one row or column raises there, not loops)
+        left_h, left_w = ph, pw
+        while left_h or left_w:
+            kh = min(left_h, max(x.shape[2] - 1, 1))
+            kw = min(left_w, max(x.shape[3] - 1, 1))
+            x = F.pad(x, (0, kw, 0, kh), mode="reflect")
+            left_h, left_w = left_h - kh, left_w - kw
     return x.permute(0, 2, 3, 1).reshape(B, T, H + ph, W + pw, C)

@@ -7,7 +7,8 @@ names the reference's `pca_comp.DCTParams` and `useful.MYPCA` classes,
 stubbed here so that no reference code is imported). Conv weights
 [O, I, kh, kw] become HWIO, float64 scalars and PCA tensors float32; the
 per-scale PCA fits go under `pca_multi` and, flat, under `__extra__/`; the
-training record under `__meta__/`.
+training record under `__meta__/`. `params_to_state_dict` goes back, from
+a converted tree to the state dict the reference's oracle reads.
 
 PWC-Net (`--pwc`): the teacher's state dict through
 `weights.convert_pwc_state_dict`, written in fldrx's layout (conv weights
@@ -112,6 +113,38 @@ def state_dict_to_params(sd, dtype=np.float32):
                          for n in ("mean", "ev", "mean_vec"))):
             extras[f"{k}{s}"] = v
     return p, extras
+
+
+def params_to_state_dict(tree, extras):
+    """The reference state dict {name: numpy array} of a numpy parameter
+    tree and its extras, as `weights.load_npz` returns them: the inverse of
+    `state_dict_to_params` on the names it reads (vfinet.*, rec_ctx_ds.*,
+    Mean/EV/meanVec at 8, 16, 32 and 64; not the base_modules.1.* copies).
+    Conv weights go from HWIO back to OIHW."""
+    sd = {}
+
+    def conv(name, p):
+        sd[f"{name}.weight"] = np.ascontiguousarray(
+            np.transpose(p["w"], (3, 2, 0, 1)))           # HWIO → OIHW
+        sd[f"{name}.bias"] = np.asarray(p["b"])
+
+    conv("rec_ctx_ds.0", tree["rec_ctx"]["conv0"])
+    conv("rec_ctx_ds.2", tree["rec_ctx"]["conv1"])
+    v = tree["vfinet"]
+    sd["vfinet.T_param"] = np.asarray(v["T_param"])
+    sd["vfinet.z_alpha"] = np.asarray(v["z_alpha"])
+    for i, p in zip((0, 2, 4, 6, 8), v["flow_bottom"]):
+        conv(f"vfinet.conv_flow_bottom.{i}", p)
+    conv("vfinet.conv_flow1", v["conv_flow1"])
+    for i, p in zip((0, 2, 4, 6, 8), v["conv_flow2"]):
+        conv(f"vfinet.conv_flow2.{i}", p)
+    for k, p in v["refine"].items():
+        conv(f"vfinet.refine_unet.{k}", p)
+    for k, n in (("Mean", "mean"), ("EV", "ev"), ("meanVec", "mean_vec")):
+        sd[f"{k}8"] = np.asarray(tree["pca"][n])
+        for s in (16, 32, 64):
+            sd[f"{k}{s}"] = np.asarray(extras[f"{k}{s}"])
+    return sd
 
 
 def save_npz(path: str, tree, extras=None, meta=None) -> None:

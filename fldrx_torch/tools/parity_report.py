@@ -1,21 +1,21 @@
-"""Parity evidence (counterpart of fldrx/tools/parity_report.py): how far
-the fast configurations move the 4K output from the strict float32 path.
+"""Parity evidence (counterpart of fldrx/tools/parity_report.py):
 
+  1. the strict path (float32, fast_warp off) against a torch oracle of
+     the reference (tools/reference_oracle.py, on the CPU) at 768×1280,
+     S_tst = 5, t = 0.375, both on one pyramid. The oracle reads the
+     reference state dict: of `--oracle SRC.pt`, or by default of
+     checkpoints/fldrnet_best.npz through convert_ckpt.params_to_state_dict;
   2. the fast warps and the packed synthesis's values in float32 against
      the strict path, on naturalistic moving content at 2160×4096;
   3. bf16 compute (flow path and refine UNet) on top of them, against the
      strict path and against fast float32.
 
-Measurement 1 of fldrx's report, the strict path against a torch oracle
-of the reference on its own checkpoint, needs the reference .pt, which
-is not in the repository: `--oracle SRC.pt` refuses while the file is
-absent.
-
 Writes the readings as markdown to `--out` (default PARITY_gen.md).
 
 Usage:
     python -m fldrx_torch.tools.parity_report [--hw 2160 4096]
-        [--device cpu] [--out PARITY_gen.md] [--oracle SRC.pt]
+        [--device cpu] [--out PARITY_gen.md] [--skip-oracle]
+        [--oracle SRC.pt]
 """
 
 from __future__ import annotations
@@ -23,12 +23,17 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-from typing import Dict, Sequence
+import time
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
 from ..api import DEFAULT_NPZ, prepare_model
-from ..config import papermodel_test5
+from ..config import FLDRConfig, papermodel_test5
+
+# measurement 1's setting, PARITY.md §1's
+ORACLE_HW = (768, 1280)
+ORACLE_T = 0.375
 
 
 def natural_frames(H: int, W: int, shift: float = 18) -> np.ndarray:
@@ -85,11 +90,108 @@ def measure(hw: Sequence[int] = (2160, 4096), device=None) -> Dict[str, float]:
             "bf16_vs_fast_f32": psnr_between(o["fast_bf16"], o["fast_f32"])}
 
 
-def report(p: Dict[str, float], hw: Sequence[int], card: str) -> str:
+def strict_config() -> FLDRConfig:
+    """The strict path: papermodel_test5 in float32 with the exact warps."""
+    return papermodel_test5().replace(compute_dtype="float32",
+                                      fast_warp=False)
+
+
+def oracle_state_dict(src: Optional[str] = None):
+    """(the reference state dict as CPU tensors, the name of its source):
+    a reference .pt through load_reference_state_dict, or with `src` None
+    the in-repo .npz through params_to_state_dict."""
+    import torch
+
+    from .convert_ckpt import load_reference_state_dict, params_to_state_dict
+    from ..weights import load_npz
+
+    if src is not None:
+        if not os.path.exists(src):
+            raise FileNotFoundError(
+                f"measurement 1 needs the reference checkpoint; {src} is "
+                "absent")
+        sd, _ = load_reference_state_dict(src)
+        name = src
+    else:
+        tree, extras, _ = load_npz(DEFAULT_NPZ)
+        sd = params_to_state_dict(tree, extras)
+        name = os.path.join("checkpoints", os.path.basename(DEFAULT_NPZ))
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}, name
+
+
+def measure_oracle(configs: Optional[Mapping[str, FLDRConfig]] = None,
+                   device=None, src: Optional[str] = None) -> Dict:
+    """Measurement 1: each configuration of `configs` (default the strict
+    path; all at papermodel_test5's S_tst = 5) on `device` against the
+    reference's oracle on the CPU, on one pyramid of natural_frames(768,
+    1280, shift=10) at t = 0.375. Returns
+    {"source", "hw", "S_tst", "oracle_s", name: {"max_abs", "mean_abs",
+    "psnr_db", "s"}}: differences of the [-1, 1] outputs, the seconds of
+    each run (its output on the host)."""
+    import torch
+
+    from ..eval.pipeline import build_pyramid
+    from ..model.fldrnet import dtype_of, forward_test
+    from .reference_oracle import oracle_forward_test
+
+    configs = dict(configs or {"strict": strict_config()})
+    sd, source = oracle_state_dict(src)
+    # through prepare_model: its Interpolator turns TF32 off on the card
+    # before the pyramid's resizes and the forward run (by PyTorch's
+    # default cuDNN runs float32 convs in TF32, which rounds their inputs
+    # to 10 mantissa bits)
+    models = {name: prepare_model(DEFAULT_NPZ, cfg, device)[0]
+              for name, cfg in configs.items()}
+    first = next(iter(models.values()))
+    S_tst = first.cfg.S_tst
+    frames = natural_frames(*ORACLE_HW, shift=10)
+    t = np.full((1, 1), ORACLE_T, np.float32)
+    with torch.inference_mode():
+        pyr = build_pyramid(torch.from_numpy(frames).to(first.device),
+                            first.cfg, S_tst + 1)
+        tdev = torch.from_numpy(t).to(first.device)
+        out = {"source": source, "hw": list(ORACLE_HW), "S_tst": S_tst}
+        t0 = time.time()
+        ref = oracle_forward_test(
+            sd, [p.permute(0, 4, 1, 2, 3).cpu().numpy() for p in pyr], t,
+            S_tst)                                     # NCTHW, as the oracle
+        out["oracle_s"] = time.time() - t0
+        for name, interp in models.items():
+            t0 = time.time()
+            got = forward_test(interp.params, interp.cfg, pyr, tdev,
+                               compute_dtype=dtype_of(interp.cfg.compute_dtype))
+            got = np.moveaxis(got.float().cpu().numpy(), -1, 1)
+            d = np.abs(got - ref)
+            out[name] = {"max_abs": float(d.max()),
+                         "mean_abs": float(d.mean()),
+                         "psnr_db": psnr_between(got, ref),
+                         "s": time.time() - t0}
+    return out
+
+
+def report(p: Dict[str, float], hw: Sequence[int], card: str,
+           oracle: Optional[Dict] = None) -> str:
     H, W = hw
-    return "\n".join([
-        "# PARITY — the port's fast configurations against its strict path",
-        "",
+    lines = [
+        "# PARITY — the port against the reference's oracle and its fast "
+        "configurations against its strict path",
+        ""]
+    if oracle is not None:
+        oh, ow = oracle["hw"]
+        r = oracle["strict"]
+        lines += [
+            f"## 1. Strict path against the torch oracle of the reference "
+            f"({oh}×{ow}, S_tst = {oracle['S_tst']}, t = {ORACLE_T})",
+            "",
+            f"The reference state dict of {oracle['source']}; the oracle "
+            f"(tools/reference_oracle.py) on the CPU, the port on {card}, "
+            f"one pyramid of the same content panned by 10 px.",
+            "",
+            f"- max abs diff: **{r['max_abs']:.2e}**, mean abs diff: "
+            f"{r['mean_abs']:.2e}",
+            f"- PSNR(port strict, oracle): **{r['psnr_db']:.2f} dB**",
+            ""]
+    return "\n".join(lines + [
         f"Naturalistic band-limited moving content (a pan of about 18 px), "
         f"{H}×{W}, t = 0.375, the checkpoints/fldrnet_best.npz weights, "
         f"papermodel test5scales; {card}.",
@@ -116,16 +218,18 @@ def main(argv=None) -> int:
     ap.add_argument("--hw", type=int, nargs=2, default=(2160, 4096))
     ap.add_argument("--device", default=None, help="default cuda")
     ap.add_argument("--out", default="PARITY_gen.md")
+    ap.add_argument("--skip-oracle", action="store_true",
+                    help="skip measurement 1")
     ap.add_argument("--oracle", metavar="SRC.pt", default=None,
-                    help="measurement 1 against the reference checkpoint")
+                    help="measurement 1 on the reference checkpoint's state "
+                         "dict (default: the in-repo .npz's)")
     a = ap.parse_args(argv)
-    if a.oracle is not None:
-        if not os.path.exists(a.oracle):
-            raise FileNotFoundError(
-                f"measurement 1 needs the reference checkpoint; {a.oracle} "
-                "is absent")
-        raise NotImplementedError(
-            "measurement 1 (the oracle of the reference) is not ported")
+    oracle = None
+    if not a.skip_oracle:
+        oracle = measure_oracle(device=a.device, src=a.oracle)
+        r = oracle["strict"]
+        print(f"oracle ({oracle['source']}): max {r['max_abs']:.3e} mean "
+              f"{r['mean_abs']:.3e} psnr {r['psnr_db']:.2f} dB")
     p = measure(a.hw, a.device)
     card = "the CPU"
     import torch
@@ -134,7 +238,7 @@ def main(argv=None) -> int:
     for k, v in p.items():
         print(f"{k}: {v:.2f} dB")
     with open(a.out, "w") as f:
-        f.write(report(p, a.hw, card))
+        f.write(report(p, a.hw, card, oracle))
     print(f"{a.out} written")
     return 0
 

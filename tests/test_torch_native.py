@@ -9,6 +9,7 @@ import importlib.util
 import os
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -211,6 +212,99 @@ def test_concurrent_readers_decode_each_frame_once(lib, tmp_path):
     assert not any(th.is_alive() for th in threads)
     assert not errors, errors[0]
     assert ds.frames_decoded == 9
+
+
+def _released_together(fn, n: int):
+    """n daemon threads run fn(k) at once, released by a Barrier at a short
+    switch interval. Returns (the exceptions they raised, the threads still
+    alive 10 s after the start)."""
+    barrier = threading.Barrier(n)
+    errors = []
+
+    def run(k):
+        try:
+            barrier.wait(timeout=10)
+            fn(k)
+        except Exception as e:          # reported after the join
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(k,), daemon=True)
+                   for k in range(n)]
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 10
+        for th in threads:
+            th.join(timeout=max(0.0, deadline - time.monotonic()))
+    finally:
+        sys.setswitchinterval(old)
+    return errors, [th for th in threads if th.is_alive()]
+
+
+def test_first_concurrent_calls_decode_each_frame_once(tmp_path):
+    """40 fresh X-Test sets, each read first by 16 threads released
+    together: no call raises, each set decodes its 9 frames once, every
+    thread gets its pixels and none is left waiting. Whichever decoder is
+    present."""
+    for n in range(40):
+        root = str(tmp_path / str(n))
+        frames = _x_test_tree(root)
+        ds = datasets.get_test_dataset(
+            papermodel().replace(x_test_data_path=root), "X-Test", 8)
+
+        def read(k):
+            got = ds._frames(ds.items[k % len(ds)].paths)
+            for g, i in zip(got, [0, 32, 4 * (k % len(ds) + 1)]):
+                np.testing.assert_array_equal(g, frames[i])
+
+        errors, alive = _released_together(read, 16)
+        assert not alive, f"set {n}: {len(alive)} threads still waiting"
+        assert not errors, f"set {n}: {errors[0]!r}"
+        assert ds.frames_decoded == 9, f"set {n}: {ds.frames_decoded}"
+
+
+@pytest.mark.parametrize("fault", ["raises", "too_few"])
+def test_failed_decode_wakes_every_waiter(tmp_path, monkeypatch, fault):
+    """The decoder raises, or returns one frame fewer than asked, while 15
+    threads wait for the frames of its call: every thread returns with an
+    error, none hangs, and nothing stays in flight or counted."""
+    _x_test_tree(str(tmp_path))
+    ds = datasets.get_test_dataset(
+        papermodel().replace(x_test_data_path=str(tmp_path)), "X-Test", 8)
+    n = 16
+    waiting, lock = [0], threading.Lock()
+
+    class CountedEvent(threading.Event):
+        def wait(self, timeout=None):
+            with lock:
+                waiting[0] += 1
+            return super().wait(timeout)
+
+    class Decoding(datasets._Decoding):
+        def __init__(self):
+            super().__init__()
+            self.done = CountedEvent()
+
+    def broken(paths, threads=3):
+        deadline = time.monotonic() + 5       # until the others wait
+        while waiting[0] < n - 1 and time.monotonic() < deadline:
+            time.sleep(1e-3)
+        if fault == "raises":
+            raise OSError("truncated PNG")
+        return [np.zeros((40, 56, 3), np.uint8)] * (len(paths) - 1)
+
+    monkeypatch.setattr(datasets, "_Decoding", Decoding)
+    monkeypatch.setattr(datasets.native, "read_bgr_batch", broken)
+    errors, alive = _released_together(
+        lambda k: ds._frames(ds.items[0].paths), n)
+    assert not alive, f"{len(alive)} threads still waiting"
+    assert len(errors) == n and waiting[0] == n - 1
+    waiter = [e for e in errors if isinstance(e, RuntimeError)
+              and str(e).startswith("decoding ")]
+    assert len(waiter) == n - 1, errors
+    assert ds._decoding == {} and ds.frames_decoded == 0
 
 
 @pytest.fixture

@@ -56,7 +56,8 @@ def _flow(rng, shape, scale):
 # -- pad / resize -----------------------------------------------------------
 
 @pytest.mark.parametrize("hw,div", [((37, 50), 16), ((64, 48), 32),
-                                    ((32, 32), 32)])
+                                    ((32, 32), 32), ((64, 64), 256),
+                                    ((5, 40), 32)])
 def test_pad_matches_fldrx(hw, div):
     rng = np.random.RandomState(0)
     x = rng.rand(2, 2, *hw, 3).astype(np.float32)
