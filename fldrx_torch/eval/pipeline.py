@@ -4,6 +4,12 @@ fldrx/eval/pipeline.py, without jit: PyTorch runs eagerly).
 Test-time preprocessing as in the reference's main.py:833-867:
 reflect-pad to (2^S_tst)·8 divisibility, a bicubic pyramid with scale factor
 8/s_i, forward without gradients, crop to the original size.
+
+Spans (utils/trace.py; recorded only while a profiler runs): `flow`, a new
+request, over `precompute_flow` with its stages `ingest` (the host-to-
+device copy, normalisation and padding), `pyramid`, `features` and
+`levels` (model/fldrnet.py) and `extras`; `synth` (attribute `n_t`) over
+each `synthesize_multi_at`, with the synthesis stages inside.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from ..model.fldrnet import (dtype_of, flow_extras, forward_flow,
 from ..ops.pad import pad_frames
 from ..ops.repack import planes_to_plain_np
 from ..ops.resize import resize_2d
+from ..utils import trace
 
 
 def build_pyramid(frames: torch.Tensor, cfg: FLDRConfig, n_levels: int):
@@ -89,13 +96,18 @@ class Interpolator:
 
     def precompute_flow(self, frames):
         """frames [B,2,H,W,3] → (flow, padded_frames, extras)."""
-        frames = self._ingest(frames)
-        with torch.inference_mode():
-            padded = self._prepare(frames)
-            pyr = build_pyramid(padded, self.cfg, self.cfg.S_tst + 1)
-            flow = forward_flow(self.params, self.cfg, pyr,
-                                self._compute_dtype)
-            extras = flow_extras(self.params, self.cfg, flow, padded)
+        with trace.span("flow", request=True):
+            with trace.span("ingest"):
+                frames = self._ingest(frames)
+                with torch.inference_mode():
+                    padded = self._prepare(frames)
+            with torch.inference_mode():
+                with trace.span("pyramid"):
+                    pyr = build_pyramid(padded, self.cfg, self.cfg.S_tst + 1)
+                flow = forward_flow(self.params, self.cfg, pyr,
+                                    self._compute_dtype)
+                with trace.span("extras"):
+                    extras = flow_extras(self.params, self.cfg, flow, padded)
         return flow, padded, extras
 
     def synthesize_at(self, flow, padded_frames, t, orig_hw: Tuple[int, int],
@@ -119,13 +131,14 @@ class Interpolator:
         B = flow.shape[0]
         if planes_out is None:
             planes_out = self.cfg.planes_out
-        ts = [torch.full((B, 1), float(tv), dtype=torch.float32,
-                         device=self.device) for tv in t_values]
-        with torch.inference_mode():
-            out = forward_synthesis_multi(
-                self.params, self.cfg, flow, padded_frames, ts,
-                precomputed=extras, compute_dtype=self._compute_dtype,
-                planes_out=planes_out and orig_hw[0] % 4 == 0)
+        with trace.span("synth", n_t=len(t_values)):
+            ts = [torch.full((B, 1), float(tv), dtype=torch.float32,
+                             device=self.device) for tv in t_values]
+            with torch.inference_mode():
+                out = forward_synthesis_multi(
+                    self.params, self.cfg, flow, padded_frames, ts,
+                    precomputed=extras, compute_dtype=self._compute_dtype,
+                    planes_out=planes_out and orig_hw[0] % 4 == 0)
         if out.shape[-1] != 3:                          # u-planes
             return out[..., :orig_hw[0] // 4, :orig_hw[1] * 3]
         return out[:, :, :orig_hw[0], :orig_hw[1]]

@@ -17,6 +17,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils.trace import ranges
+
 TRACE_FILE = "trace.json"
 
 
@@ -24,14 +26,15 @@ TRACE_FILE = "trace.json"
 def trace(log_dir: str = os.path.join("log_dir", "trace")):
     """Profile the enclosed block (the host, and the card where there is
     one) and write its Chrome trace to `log_dir`/trace.json, viewable in
-    ui.perfetto.dev or chrome://tracing. Yields the path the trace will
-    have."""
+    ui.perfetto.dev or chrome://tracing. The port's stage spans
+    (utils/trace.py) are ranges on its timeline. Yields the path the trace
+    will have."""
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, TRACE_FILE)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof, ranges():
         yield path
     prof.export_chrome_trace(path)
 

@@ -24,6 +24,13 @@ The packed synthesis (`synthesize_packed_multi`) is a TPU layout in fldrx;
 here it computes the same values in plain NHWC up to the refine UNet, whose
 space-to-depth output the final blend reads in place, writing u-planes
 (ops/repack.py). A plain frame then takes the interleave kernel.
+
+Spans (utils/trace.py, recorded only while a profiler runs) name the
+stages: `features` and `levels` of the flow (inference and training),
+`pack` and `z` of the t-independent extras, and for each t of a synthesis
+`splat`, `flowback`, `gather`, `refine_in` (the UNet's input: the
+concatenation, the cast and, packed, the space-to-depth), `unet`, `blend`
+and, packed into plain rows, `interleave`.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from ..ops.repack import interleave_planes
 from ..ops.resize import resize_2d
 from ..ops.splat import softsplat, softsplat_norm, softsplat_vals
 from ..ops.warp import bwarp, ones_mask_sep, sample_coords
+from ..utils import trace
 from ..weights import named_leaves, unflatten_params
 
 Params = Dict[str, Any]
@@ -374,59 +382,67 @@ def synthesize(p: Params, flow_l: torch.Tensor, images: torch.Tensor,
     if precomputed is None:
         z0, z1 = z_metrics(p, x0, x1, flow_10, flow_01, fast)
 
-    warped0 = ssplat(x0, flow_t0, z=z0)
-    warped1 = ssplat(x1, flow_t1, z=z1)
+    with trace.span("splat"):
+        warped0 = ssplat(x0, flow_t0, z=z0)
+        warped1 = ssplat(x1, flow_t1, z=z1)
 
-    if fast and min(flow_l.shape[1], flow_l.shape[2]) >= 96:
-        # compose the flows at the feature grid and upsample the result;
-        # the validity mask is applied at full resolution
-        fb0 = bw(flow_l[..., 0:2] * tb, (1.0 - tb) * flow_l[..., 2:4], False)
-        fb1 = bw(flow_l[..., 2:4] * (1.0 - tb), tb * flow_l[..., 0:2], False)
-        flowback_0 = up(fb0)
-        flowback_1 = up(fb1)
-        if crop_hw is not None:
-            flowback_0 = flowback_0[:, :crop_hw[0], :crop_hw[1]]
-            flowback_1 = flowback_1[:, :crop_hw[0], :crop_hw[1]]
-        # flow_01/flow_10 are cropped already, so the masks are too
-        flowback_0 = flowback_0 * _bwarp_ones_mask((1.0 - tb) * flow_01)
-        flowback_1 = flowback_1 * _bwarp_ones_mask(tb * flow_10)
-    else:
-        flowback_0 = bw(flow_10 * tb, (1.0 - tb) * flow_01)
-        flowback_1 = bw(flow_01 * (1.0 - tb), tb * flow_10)
-    im0_tot = bw(x0, flowback_0)
-    im1_tot = bw(x1, flowback_1)
+    with trace.span("flowback"):
+        if fast and min(flow_l.shape[1], flow_l.shape[2]) >= 96:
+            # compose the flows at the feature grid and upsample the
+            # result; the validity mask is applied at full resolution
+            fb0 = bw(flow_l[..., 0:2] * tb, (1.0 - tb) * flow_l[..., 2:4],
+                     False)
+            fb1 = bw(flow_l[..., 2:4] * (1.0 - tb), tb * flow_l[..., 0:2],
+                     False)
+            flowback_0 = up(fb0)
+            flowback_1 = up(fb1)
+            if crop_hw is not None:
+                flowback_0 = flowback_0[:, :crop_hw[0], :crop_hw[1]]
+                flowback_1 = flowback_1[:, :crop_hw[0], :crop_hw[1]]
+            # flow_01/flow_10 are cropped already, so the masks are too
+            flowback_0 = flowback_0 * _bwarp_ones_mask((1.0 - tb) * flow_01)
+            flowback_1 = flowback_1 * _bwarp_ones_mask(tb * flow_10)
+        else:
+            flowback_0 = bw(flow_10 * tb, (1.0 - tb) * flow_01)
+            flowback_1 = bw(flow_01 * (1.0 - tb), tb * flow_10)
+    with trace.span("gather"):
+        im0_tot = bw(x0, flowback_0)
+        im1_tot = bw(x1, flowback_1)
 
-    parts = [x0, x1, warped0, warped1, flow_t0, flow_t1,
-             flowback_0, flowback_1, im0_tot, im1_tot]
-    if cols is not None:
-        lo, hi = cols
-        if lo % UNET_GRID or hi % UNET_GRID:
-            raise ValueError(f"slab {cols} is off the UNet's {UNET_GRID}-"
-                             "column grid")
-        a, b = unet_columns(cols, x0.shape[2])
-        parts = [v[:, :, a:b] for v in parts]
-    refine_in = torch.cat(parts, -1)                         # 26 ch
-    unet = (refine_unet_s2d
-            if refine_in.shape[1] % 4 == 0 and refine_in.shape[2] % 4 == 0
-            else refine_unet)
-    out = unet(p["refine"], refine_in.to(compute_dtype)).float()
+    with trace.span("refine_in"):
+        parts = [x0, x1, warped0, warped1, flow_t0, flow_t1,
+                 flowback_0, flowback_1, im0_tot, im1_tot]
+        if cols is not None:
+            lo, hi = cols
+            if lo % UNET_GRID or hi % UNET_GRID:
+                raise ValueError(f"slab {cols} is off the UNet's "
+                                 f"{UNET_GRID}-column grid")
+            a, b = unet_columns(cols, x0.shape[2])
+            parts = [v[:, :, a:b] for v in parts]
+        refine_in = torch.cat(parts, -1).to(compute_dtype)      # 26 ch
+    with trace.span("unet"):
+        unet = (refine_unet_s2d
+                if refine_in.shape[1] % 4 == 0 and refine_in.shape[2] % 4 == 0
+                else refine_unet)
+        out = unet(p["refine"], refine_in).float()
     if cols is not None:
         out = out[:, :, lo - a:hi - a]
         x0, x1, warped0, warped1, im0_tot, im1_tot = (
             v[:, :, lo:hi] for v in (x0, x1, warped0, warped1, im0_tot,
                                      im1_tot))
 
-    T = p["T_param"].float()
-    occ = torch.softmax(out[..., :6] / T, -1)
-    w0 = (1 - tb) * occ[..., 0:1]
-    w1 = tb * occ[..., 1:2]
-    w2 = (1 - tb) * occ[..., 2:3]
-    w3 = tb * occ[..., 3:4]
-    w4 = (1 - tb) * occ[..., 4:5]
-    w5 = tb * occ[..., 5:6]
-    divisor = w0 + w1 + w2 + w3 + w4 + w5
-    out_l = (w0 * warped0 + w1 * warped1 + w2 * im0_tot + w3 * im1_tot
-             + w4 * x0 + w5 * x1) / divisor
+    with trace.span("blend"):
+        T = p["T_param"].float()
+        occ = torch.softmax(out[..., :6] / T, -1)
+        w0 = (1 - tb) * occ[..., 0:1]
+        w1 = tb * occ[..., 1:2]
+        w2 = (1 - tb) * occ[..., 2:3]
+        w3 = tb * occ[..., 3:4]
+        w4 = (1 - tb) * occ[..., 4:5]
+        w5 = tb * occ[..., 5:6]
+        divisor = w0 + w1 + w2 + w3 + w4 + w5
+        out_l = (w0 * warped0 + w1 * warped1 + w2 * im0_tot + w3 * im1_tot
+                 + w4 * x0 + w5 * x1) / divisor
     return out_l, flow_refine, occ[..., 0:1], (flow_t0, flow_t1)
 
 
@@ -519,34 +535,43 @@ def synthesize_packed_multi(p: Params, flow_l: torch.Tensor,
     Tparam = p["T_param"].float()
     results = []
     for t in ts:
-        tb = t.reshape(B, 1, 1, 1).float()
-        ft0 = tb * flow_01f
-        ft1 = (1.0 - tb) * flow_10f
-        warped0 = softsplat_norm(fastwarp.splat(vals0, xs + ft0[..., 0],
-                                                ys + ft0[..., 1]))
-        warped1 = softsplat_norm(fastwarp.splat(vals1, xs + ft1[..., 0],
-                                                ys + ft1[..., 1]))
-        # flowback composition at the flow grid, no mask
-        sx, sy = sample_coords((1.0 - tb) * flow_01)
-        fb0 = fastwarp.gather(flow_10 * tb, sx, sy)
-        sx, sy = sample_coords(tb * flow_10)
-        fb1 = fastwarp.gather(flow_01 * (1.0 - tb), sx, sy)
-        fb0 = (upscale * resize_2d(fb0, (H, W), "bilinear")
-               * _bwarp_ones_mask((1.0 - tb) * flow_01f))
-        fb1 = (upscale * resize_2d(fb1, (H, W), "bilinear")
-               * _bwarp_ones_mask(tb * flow_10f))
-        sx, sy = sample_coords(fb0)
-        im0 = fastwarp.gather(x0, sx, sy, mask=True)
-        sx, sy = sample_coords(fb1)
-        im1 = fastwarp.gather(x1, sx, sy, mask=True)
-
-        refine_in = torch.cat([x0, x1, warped0, warped1, ft0, ft1,
-                               fb0, fb1, im0, im1], -1).to(compute_dtype)
-        logits = refine_unet_s2d_core(p["refine"], s2d(refine_in, 4)).float()
-        outP = blend6_planes(logits, (warped0, warped1, im0, im1, x0, x1),
-                             tb, Tparam)
-        results.append(outP if planes_out else
-                       interleave_planes(outP).reshape(B, H, W, 3))
+        with trace.span("splat"):
+            tb = t.reshape(B, 1, 1, 1).float()
+            ft0 = tb * flow_01f
+            ft1 = (1.0 - tb) * flow_10f
+            warped0 = softsplat_norm(fastwarp.splat(vals0, xs + ft0[..., 0],
+                                                    ys + ft0[..., 1]))
+            warped1 = softsplat_norm(fastwarp.splat(vals1, xs + ft1[..., 0],
+                                                    ys + ft1[..., 1]))
+        with trace.span("flowback"):
+            # flowback composition at the flow grid, no mask
+            sx, sy = sample_coords((1.0 - tb) * flow_01)
+            fb0 = fastwarp.gather(flow_10 * tb, sx, sy)
+            sx, sy = sample_coords(tb * flow_10)
+            fb1 = fastwarp.gather(flow_01 * (1.0 - tb), sx, sy)
+            fb0 = (upscale * resize_2d(fb0, (H, W), "bilinear")
+                   * _bwarp_ones_mask((1.0 - tb) * flow_01f))
+            fb1 = (upscale * resize_2d(fb1, (H, W), "bilinear")
+                   * _bwarp_ones_mask(tb * flow_10f))
+        with trace.span("gather"):
+            sx, sy = sample_coords(fb0)
+            im0 = fastwarp.gather(x0, sx, sy, mask=True)
+            sx, sy = sample_coords(fb1)
+            im1 = fastwarp.gather(x1, sx, sy, mask=True)
+        with trace.span("refine_in"):
+            refine_in = s2d(torch.cat([x0, x1, warped0, warped1, ft0, ft1,
+                                       fb0, fb1, im0, im1], -1)
+                            .to(compute_dtype), 4)
+        with trace.span("unet"):
+            logits = refine_unet_s2d_core(p["refine"], refine_in).float()
+        with trace.span("blend"):
+            outP = blend6_planes(logits, (warped0, warped1, im0, im1, x0, x1),
+                                 tb, Tparam)
+        if planes_out:
+            results.append(outP)
+        else:
+            with trace.span("interleave"):
+                results.append(interleave_planes(outP).reshape(B, H, W, 3))
     return results
 
 
@@ -619,12 +644,14 @@ def forward_flow(params: Params, cfg: FLDRConfig,
     """Coarse-to-fine flow estimation (levels S_tst..0); t-independent.
     `minmax`: see extract_features."""
     compute_dtype = _stage_dtype(cfg, "flow_dtype", compute_dtype)
-    feats = extract_features(params, cfg, pyramid, cfg.S_tst + 1,
-                             compute_dtype, minmax)
+    with trace.span("features"):
+        feats = extract_features(params, cfg, pyramid, cfg.S_tst + 1,
+                                 compute_dtype, minmax)
     vp = params["vfinet"]
     flow = None
-    for level in range(cfg.S_tst, -1, -1):
-        flow = level_flow(vp, feats[level], flow)
+    with trace.span("levels"):
+        for level in range(cfg.S_tst, -1, -1):
+            flow = level_flow(vp, feats[level], flow)
     return flow
 
 
@@ -638,22 +665,26 @@ def flow_extras(params: Params, cfg: FLDRConfig, flow: torch.Tensor,
     images = images.float()
     B, _, H, W, _ = images.shape
     upscale = H // flow.shape[1]
-    flow_10 = upscale * resize_2d(flow[..., 0:2], (H, W), "bilinear")
-    flow_01 = upscale * resize_2d(flow[..., 2:4], (H, W), "bilinear")
+    with trace.span("pack"):
+        flow_10 = upscale * resize_2d(flow[..., 0:2], (H, W), "bilinear")
+        flow_01 = upscale * resize_2d(flow[..., 2:4], (H, W), "bilinear")
     packed = _packed_enabled(cfg) and can_use_packed(flow, images)
-    if fast and packed and H % 64 == 0 and W % 64 == 0:
-        Hh, Wh = H // 2, W // 2
-        imgs2 = resize_2d(images.reshape(B * 2, H, W, 3), (Hh, Wh),
-                          "bilinear").reshape(B, 2, Hh, Wh, 3)
-        fl10h = (upscale / 2) * resize_2d(flow[..., 0:2], (Hh, Wh), "bilinear")
-        fl01h = (upscale / 2) * resize_2d(flow[..., 2:4], (Hh, Wh), "bilinear")
-        z0h, z1h = z_metrics(params["vfinet"], imgs2[:, 0], imgs2[:, 1],
-                             fl10h, fl01h, fast=True)
-        z0 = resize_2d(z0h, (H, W), "bilinear")
-        z1 = resize_2d(z1h, (H, W), "bilinear")
-    else:
-        z0, z1 = z_metrics(params["vfinet"], images[:, 0], images[:, 1],
-                           flow_10, flow_01, fast)
+    with trace.span("z"):
+        if fast and packed and H % 64 == 0 and W % 64 == 0:
+            Hh, Wh = H // 2, W // 2
+            imgs2 = resize_2d(images.reshape(B * 2, H, W, 3), (Hh, Wh),
+                              "bilinear").reshape(B, 2, Hh, Wh, 3)
+            fl10h = (upscale / 2) * resize_2d(flow[..., 0:2], (Hh, Wh),
+                                              "bilinear")
+            fl01h = (upscale / 2) * resize_2d(flow[..., 2:4], (Hh, Wh),
+                                              "bilinear")
+            z0h, z1h = z_metrics(params["vfinet"], imgs2[:, 0], imgs2[:, 1],
+                                 fl10h, fl01h, fast=True)
+            z0 = resize_2d(z0h, (H, W), "bilinear")
+            z1 = resize_2d(z1h, (H, W), "bilinear")
+        else:
+            z0, z1 = z_metrics(params["vfinet"], images[:, 0], images[:, 1],
+                               flow_10, flow_01, fast)
     return (flow_10, flow_01, z0, z1)
 
 
@@ -727,8 +758,9 @@ def forward_train(params: Params, cfg: FLDRConfig,
     (synthesize)."""
     S = cfg.S_trn
     fast = cfg.fast_warp_train
-    feats = extract_features(params, cfg, pyramid, S + 1, compute_dtype,
-                             minmax)
+    with trace.span("features"):
+        feats = extract_features(params, cfg, pyramid, S + 1, compute_dtype,
+                                 minmax)
     vp = params["vfinet"]
     crop = None
     if validation:
@@ -736,15 +768,16 @@ def forward_train(params: Params, cfg: FLDRConfig,
 
     outs, flow_refines, unrefined, endflows = [], [], [], []
     flow = None
-    for level in range(S, -1, -1):
-        flow = level_flow(vp, feats[level], flow, fast=fast)
-        out, fr, occ0, endflow = synthesize(
-            vp, flow.float(), pyramid[level].float(), t, crop_hw=crop,
-            fast=fast, cols=cols if level == 0 else None)
-        outs.append(out)
-        flow_refines.append(fr)
-        unrefined.append(flow)
-        endflows.append(endflow)
+    with trace.span("levels"):
+        for level in range(S, -1, -1):
+            flow = level_flow(vp, feats[level], flow, fast=fast)
+            out, fr, occ0, endflow = synthesize(
+                vp, flow.float(), pyramid[level].float(), t, crop_hw=crop,
+                fast=fast, cols=cols if level == 0 else None)
+            outs.append(out)
+            flow_refines.append(fr)
+            unrefined.append(flow)
+            endflows.append(endflow)
     return {
         "out_pyramid": outs[::-1],
         "flow_refine_pyramid": flow_refines[::-1],

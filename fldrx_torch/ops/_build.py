@@ -15,7 +15,9 @@ HOST_FLAGS and HOST_LIBS.
 Builds go to `fldrx_torch/_build/` (git-ignored), named by a hash of the
 source and flags so a changed source is rebuilt. A failed build raises: no
 wrapper falls back to the plain version. `build_all()` starts one `nvcc` per
-CUDA source at once and waits for all of them.
+CUDA source at once and waits for all of them. `BUILDS` counts, for the
+process, the libraries built, the seconds it waited on the compilers, and
+the libraries found already built.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from typing import Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,6 +41,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 HOST_SOURCES = ("decoder",)
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 HOST_LIBS = ("-lpng", "-lpthread")
+
+BUILDS = {"built": 0, "compile_s": 0.0, "cached": 0}
 
 _PROTO = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 
@@ -138,17 +143,32 @@ def _finish(name: str, proc, path: str, tmp) -> str:
     return out
 
 
+def _tally(procs, t0: float) -> None:
+    """Count builds started at t0 (a process each, None where the library
+    was found) into BUILDS, with the seconds waited for them."""
+    built = sum(p is not None for p in procs)
+    BUILDS["built"] += built
+    BUILDS["cached"] += len(procs) - built
+    if built:
+        BUILDS["compile_s"] += time.perf_counter() - t0
+
+
 def build_all() -> Dict[str, str]:
     """Build every source in parallel; returns {name: nvcc output}."""
+    t0 = time.perf_counter()
     started = {n: _start(n) for n in SOURCES}
-    return {n: _finish(n, *s) for n, s in started.items()}
+    out = {n: _finish(n, *s) for n, s in started.items()}
+    _tally([s[0] for s in started.values()], t0)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for the source `name`, built at first use."""
+    t0 = time.perf_counter()
     proc, path, tmp = _start(name)
     _finish(name, proc, path, tmp)
+    _tally([proc], t0)
     lib = ctypes.CDLL(path)
     for fn, argtypes in prototypes(name).items():
         f = getattr(lib, fn)

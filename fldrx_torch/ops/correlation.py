@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
 from . import _build
 from .fastwarp import refuse_grad
 
@@ -32,7 +33,7 @@ __all__ = ["correlation", "correlation_cost_volume", "correlation_diff",
            "MAX_DISPLACEMENT", "LAUNCHES"]
 
 MAX_DISPLACEMENT = 4
-LAUNCHES = {"correlation": 0}
+LAUNCHES = trace.counters("correlation", {"correlation": 0})
 
 
 def correlation_cost_volume(f1: torch.Tensor, f2: torch.Tensor,

@@ -22,12 +22,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
 from . import _build
 from .fastwarp import refuse_grad
 
 __all__ = ["conv3x3", "conv3x3_plain", "block_n", "pack_weights", "LAUNCHES"]
 
-LAUNCHES = {"conv3x3": 0}
+LAUNCHES = trace.counters("fastconv", {"conv3x3": 0})
 
 CHUNK = 16      # input channels per stage of the kernel (csrc/conv3x3.cu CC)
 

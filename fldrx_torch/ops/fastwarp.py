@@ -23,10 +23,10 @@ Comparisons with the plain versions use a tolerance of 1e-4·(1 + |ref|) for
 that reason. splat_grad has no atomics and is deterministic.
 
 `LAUNCHES` counts kernel launches (not plain-version calls), so a run can
-show that its path went through the kernels. `FORMS` tallies the VJP
-kernels' launches by form ("gather_grad coords C=3 mask on": the outputs
-asked for, C and the mask), so a run can show which forms its path
-launches; nothing on the path reads it.
+show that its path went through the kernels; utils/trace.py keeps it per
+request. `FORMS` tallies the VJP kernels' launches by form ("gather_grad
+coords C=3 mask on": the outputs asked for, C and the mask), so a run can
+show which forms its path launches; nothing on the path reads it.
 
 The gather and splat kernels take one of two routes (csrc/warp.cu), which
 `_route` picks from C and the data pointers' alignment: VEC4, one thread
@@ -49,6 +49,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
 from . import _build
 from .splat import softsplat, splat_sum_at
 from .warp import (corner_taps, grid_sample_bilinear, ones_mask_sep,
@@ -59,7 +60,8 @@ __all__ = ["gather", "gather_plain", "splat", "splat_plain", "gather_grad",
            "gather_diff", "splat_sum_diff", "bwarp_diff", "softsplat_diff",
            "LAUNCHES", "FORMS"]
 
-LAUNCHES = {"gather": 0, "splat": 0, "gather_grad": 0, "splat_grad": 0}
+LAUNCHES = trace.counters("fastwarp", {"gather": 0, "splat": 0,
+                                       "gather_grad": 0, "splat_grad": 0})
 FORMS: Counter = Counter()
 
 # the `route` argument of fldrx_gather_f32 and fldrx_splat_f32

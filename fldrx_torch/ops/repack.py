@@ -22,12 +22,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _build
 
 __all__ = ["interleave_planes", "interleave_planes_plain", "extract_planes",
            "extract_planes_plain", "planes_to_plain_np", "LAUNCHES"]
 
-LAUNCHES = {"interleave": 0, "deinterleave": 0}
+LAUNCHES = trace.counters("repack", {"interleave": 0,
+                                     "deinterleave": 0})
 
 
 def interleave_planes_plain(planes: torch.Tensor) -> torch.Tensor:

@@ -26,13 +26,13 @@ Timing: on the card by CUDA events around each run, on the CPU
 (device="cpu", for tests) by the host clock; one untimed pass per variant,
 then n rounds, each running every variant once; a variant's ms is its
 median, its delta the median over rounds of the whole minus the variant,
-with the quartile spread of those differences. The whole runs with each
-stage's functions between two events: a stage's span is the card's time
-from its first call to the end of its work, summed over its calls (the
-median over rounds). A delta is what the pipeline pays for the stage
-(less than its kernels' time where the card waits for the host anyway);
-a span is at least the stage's device time, so a floor above it is a
-miscount. One JSON object goes to stdout (and --out), the input of
+with the quartile spread of those differences. The whole runs with the
+port's stage spans recording (utils/trace.py, SPANS): a stage's span is
+the card's time inside its span, summed over its calls (the median over
+rounds). A delta is what the pipeline pays for the stage (less than its
+kernels' time where the card waits for the host anyway); a span is at
+least the stage's device time, so a floor above it is a miscount. One
+JSON object goes to stdout (and --out), the input of
 `python -m fldrx_torch.tools.roofline --measured`.
 """
 
@@ -51,6 +51,7 @@ from ..bench_inputs import bench_frames, deploy_config
 from ..eval import pipeline
 from ..model import fldrnet
 from ..ops import fastwarp
+from ..utils import trace
 
 # stage → [(module, function name, predicate on the sizes or None)]; a
 # predicate takes (frame hw, args, kwargs) and says whether to stub the call
@@ -90,6 +91,11 @@ SYNTH_STUBS: Dict[str, List[Target]] = {
     "blend": [(fldrnet, "blend6_planes", None)],
     "interleave": [(fldrnet, "interleave_planes", None)],
 }
+# stage → the path of its span (utils/trace.py)
+SPANS = {"pyramid": "flow/pyramid", "features": "flow/features",
+         "levels": "flow/levels", "z": "flow/extras/z",
+         "pack": "flow/extras/pack",
+         **{k: f"synth/{k}" for k in SYNTH_STUBS}}
 
 
 def _zeros(x):
@@ -98,48 +104,22 @@ def _zeros(x):
     return type(x)(_zeros(v) for v in x)
 
 
-class _Patched:
-    """Swaps each (module, name) target for wrap(stage, i, real, when)
-    inside the block, restoring them in reverse order on the way out (two
-    stages may wrap one function)."""
-
-    def __init__(self, stubs: Dict[str, List[Target]]):
-        self.stubs = stubs
-        self.saved: List[Tuple[object, str, Callable]] = []
-
-    def wrap(self, stage, i, real, when):
-        raise NotImplementedError
-
-    def __enter__(self):
-        self.saved = []
-        for stage, targets in self.stubs.items():
-            for i, (m, name, when) in enumerate(targets):
-                real = getattr(m, name)
-                self.saved.append((m, name, real))
-                setattr(m, name, self.wrap(stage, i, real, when))
-        return self
-
-    def __exit__(self, *exc):
-        for m, name, real in reversed(self.saved):
-            setattr(m, name, real)
-        return False
-
-
-class Stubbed(_Patched):
+class Stubbed:
     """Inside the block, each target of one stage returns zeros of its
     output at that call (by call order), recorded from the real function
-    on the first pass, where the predicate holds. Reusable: the zeros stay
-    made."""
+    on the first pass, where the predicate holds; leaving the block
+    restores the targets. Reusable: the zeros stay made."""
 
     def __init__(self, stage: str, targets: Sequence[Target],
                  hw: Tuple[int, int]):
-        super().__init__({stage: list(targets)})
+        self.stage, self.targets = stage, list(targets)
         self.hw = hw
         self.zeros: List[List] = [[] for _ in targets]
         self.recorded = False
         self.calls: List[int] = [0] * len(targets)
+        self.saved: List[Tuple[object, str, Callable]] = []
 
-    def wrap(self, stage, i, real, when):
+    def wrap(self, i, real, when):
         def stub(*args, **kw):
             if when is not None and not when(self.hw, args, kw):
                 return real(*args, **kw)
@@ -152,56 +132,48 @@ class Stubbed(_Patched):
 
     def __enter__(self):
         self.calls = [0] * len(self.calls)
-        return super().__enter__()
+        self.saved = []
+        for i, (m, name, when) in enumerate(self.targets):
+            real = getattr(m, name)
+            self.saved.append((m, name, real))
+            setattr(m, name, self.wrap(i, real, when))
+        return self
 
     def __exit__(self, *exc):
-        super().__exit__(*exc)
+        # in reverse order: two targets may wrap one function
+        for m, name, real in reversed(self.saved):
+            setattr(m, name, real)
         if exc[0] is None:
-            idle = [name for (_, name, _), n in zip(
-                *self.stubs.values(), self.calls) if n == 0]
+            idle = [name for (_, name, _), n in zip(self.targets, self.calls)
+                    if n == 0]
             if idle:
                 raise RuntimeError(f"stubs never called on this path: {idle}")
             self.recorded = True
         return False
 
 
-class Spans(_Patched):
-    """Inside the block, every stage's targets run for real between two
-    CUDA events (on the CPU, the host clock): `take()` gives each stage's
-    summed span in ms, the time the card spent from the stage's first call
-    to the end of its work, idle gaps within included."""
+class Spans:
+    """Inside the block the port's spans record (a fresh store each time);
+    `take()` gives each stage's device ms in its span, summed over its
+    calls (on the CPU, host ms)."""
 
-    def __init__(self, stubs: Dict[str, List[Target]], hw: Tuple[int, int],
-                 dev: torch.device):
-        super().__init__(stubs)
-        self.hw = hw
-        self.card = dev.type == "cuda"
-        self.marks: Dict[str, List] = {k: [] for k in stubs}
+    def __init__(self, stages: Sequence[str]):
+        self.paths = {k: SPANS[k] for k in stages}
+        self._rec = None
 
-    def _mark(self):
-        if not self.card:
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
+    def __enter__(self):
+        trace.clear()
+        self._rec = trace.recording()
+        self._rec.__enter__()
+        return self
 
-    def wrap(self, stage, i, real, when):
-        def timed(*args, **kw):
-            if when is not None and not when(self.hw, args, kw):
-                return real(*args, **kw)
-            a = self._mark()
-            out = real(*args, **kw)
-            self.marks[stage].append((a, self._mark()))
-            return out
-        return timed
+    def __exit__(self, *exc):
+        return self._rec.__exit__(*exc)
 
     def take(self) -> Dict[str, float]:
-        if self.card:
-            torch.cuda.synchronize()
-        out = {k: sum((a.elapsed_time(b) if self.card else (b - a) * 1e3)
-                      for a, b in v) for k, v in self.marks.items()}
-        self.marks = {k: [] for k in self.marks}
-        return out
+        snap = trace.snapshot()
+        return {k: snap[p]["device_ms"] if p in snap else 0.0
+                for k, p in self.paths.items()}
 
 
 def timer_for(dev: torch.device) -> Callable[[Callable], float]:
@@ -228,7 +200,7 @@ def ablate(fn: Callable, stubs: Dict[str, List[Target]],
     """fn whole (with each stage's span) and with each stage stubbed: one
     untimed pass each, then n rounds of all of them."""
     timer = timer_for(dev)
-    spans = Spans(stubs, hw, dev)
+    spans = Spans(list(stubs))
     variants = {"whole": spans}
     variants.update({k: Stubbed(k, t, hw) for k, t in stubs.items()})
     for ctx in variants.values():

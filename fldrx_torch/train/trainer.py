@@ -21,6 +21,10 @@ fldrx/train/trainer.py).
   loss over its width slab; the PCA min/max and the PSNR's MSE are the
   whole batch's, and the gradients and metrics the whole step's, so the
   step gives what the single-process step gives on the global batch.
+- Spans (utils/trace.py, recorded only while a profiler runs): the
+  single-process step is `train_step`, a new request, with `forward` (the
+  batch's copy to the device, the pyramid, `forward_train` with its
+  `features` and `levels`, the loss), `backward` and `optimizer`.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from ..config import FLDRConfig
 from ..eval.pipeline import build_pyramid
 from ..model.fldrnet import forward_train
+from ..utils import trace
 from ..weights import named_leaves, unflatten_params
 from .losses import LossShard, total_loss
 
@@ -186,11 +191,15 @@ def make_train_step(cfg: FLDRConfig, mesh=None):
     global batch ends."""
     if mesh is None:
         def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
-            state.optimizer.zero_grad(set_to_none=True)
-            loss, metrics = train_loss(cfg, state.params, batch)
-            loss.backward()
-            state.apply_gradients()
-            return {k: v.detach() for k, v in metrics.items()}
+            with trace.span("train_step", request=True):
+                state.optimizer.zero_grad(set_to_none=True)
+                with trace.span("forward"):
+                    loss, metrics = train_loss(cfg, state.params, batch)
+                with trace.span("backward"):
+                    loss.backward()
+                with trace.span("optimizer"):
+                    state.apply_gradients()
+                return {k: v.detach() for k, v in metrics.items()}
 
         return step
 

@@ -1,0 +1,16 @@
+"""Device ms a pair in the flow's `features` span: the block-PCA features
+and the rec_ctx convs (`extract_features`). The program's own span
+(fldrx_torch/utils/trace.py), the median over the traced run's pairs."""
+
+UNIT = "ms"
+BETTER = "lower"
+SOURCE = "program_span"
+LAYER = "pipeline: eval/pipeline.py Interpolator"
+MOVES = "frames_per_s"
+WORKLOADS = ["x8_4k", "x2_4k"]
+
+
+def read(rec):
+    from vfibench.metrics._spans import per_request
+
+    return per_request(rec, "infer", "flow", ["flow/features"])
