@@ -43,9 +43,13 @@ script exits non-zero:
      C=196; the bare launch also timed on the device alone, queued behind
      a sleep, and its kernels' registers and spills printed); the
      interleave of the synthesis's u-planes (1×4×576×12288 f32, the
-     padded 4K frame) and the
+     padded 4K frame), the
      deinterleave, which no path launches (1×2304×12288 f32, bit for bit
-     and through the round trip). Each against its plain version on the
+     and through the round trip), and pack_s2d4, the refine UNet's input
+     from its ten sources at the padded 4K frame (26 channels, x0 and x1
+     batch-strided views, the flow fields W-major) in bfloat16 and in
+     float32, bit for bit, timed also as the plain concatenation, cast and
+     s2d copy. Each against its plain version on the
      same inputs (the gather within 1e-5, splat_grad's dvals bit for bit,
      the splat and the other VJP outputs within 1e-4·(1+|ref|), the
      correlation within 1e-5·(1+|ref|)), with the
@@ -65,7 +69,7 @@ script exits non-zero:
      outputs finite and in [-1.1, 1.1];
      frames/s and peak memory. Kernel launch counts are zeroed just before
      the timed pairs and read after; each pair must launch exactly gather
-     30, splat 24 and conv3x3 35 times (PER_PAIR).
+     30, splat 24, conv3x3 35 and pack_s2d4 7 times (PER_PAIR).
   5a. train step held: the real checkpoint on cuda and on cpu, one
      make_train_step each on the same batch (B=2, 256×256, S_trn=3, bench
      texture with a per-sample pan, t from a seeded torch.Generator);
@@ -717,6 +721,78 @@ def check_interleave(dev, peaks, results):
           flush=True)
 
 
+def check_pack_s2d4(dev, peaks, results):
+    """Phase 2 at the shapes and layouts the 4K path gives pack_s2d4: the
+    ten sources of the padded 4K frame (26 channels; x0 and x1
+    batch-strided views of the image pair, the four 2-channel flow fields
+    W-major, as the resizes leave them) into the UNet's s2d4 input, in
+    bfloat16 as the deploy mix runs it and in float32; bit for bit against
+    the plain version, timed through the wrapper, as the bare launch and
+    as the plain composition (the torch.cat, the cast and the s2d copy the
+    kernel replaced)."""
+    import ctypes
+
+    import torch
+
+    from fldrx_torch.ops import repack
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, H, W = 1, 2304, 4096
+
+    def source(c):
+        return torch.randn(B, H, W, c, device=dev, generator=g)
+
+    def w_major(c):
+        return torch.randn(B, W, H, c, device=dev,
+                           generator=g).transpose(1, 2)
+
+    images = torch.randn(B, 2, H, W, 3, device=dev, generator=g)
+    parts = [images[:, 0], images[:, 1], source(3), source(3)] + [
+        w_major(2) for _ in range(4)] + [source(3), source(3)]
+    C = sum(x.shape[3] for x in parts)
+    rows = []
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        got = repack.pack_s2d4(parts, dtype)
+        ref = repack.pack_s2d4_plain(parts, dtype)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"pack_s2d4 ({name}) disagrees with its "
+                                 "plain version")
+        n = len(parts)
+        ptrs = (ctypes.c_void_p * n)(*[x.data_ptr() for x in parts])
+        strides = (ctypes.c_longlong * (3 * n))(
+            *[s for x in parts for s in x.stride()[:3]])
+        chans = (ctypes.c_int * n)(*[x.shape[3] for x in parts])
+        bare = bare_launch("fldrx_pack_s2d4", ctypes.addressof(ptrs),
+                           ctypes.addressof(strides), ctypes.addressof(chans),
+                           n, got, B, H, W, int(dtype == torch.bfloat16),
+                           lib="repack")
+        b, by = bound(peaks, "pack_s2d4", B, H, W, C,
+                      torch.tensor([], dtype=dtype).element_size())
+        rows.append(dict(
+            ms=median_ms(lambda: repack.pack_s2d4(parts, dtype)),
+            bare_ms=median_ms(bare),
+            plain_ms=median_ms(lambda: repack.pack_s2d4_plain(parts, dtype)),
+            bound_ms=b, bound_by=by,
+            max_abs_err=(got.float() - ref.float()).abs().max().item(),
+            shape=f"{n} sources {B}x{H}x{W} (4 W-major), C={C} f32 -> "
+                  f"{B}x{H // 4}x{W // 4}x{16 * C} {name}"))
+        del got, ref, bare, ptrs, strides, chans
+    del parts, images
+    torch.cuda.empty_cache()
+    results["pack_s2d4"] = dict(
+        name="pack_s2d4", route="cuda", source="fldrx_torch/csrc/repack.cu",
+        replaces="none: fldrx leaves the concatenation to XLA "
+                 "(fldrx/model/fldrnet.py:851)",
+        library_call="none: no single PyTorch call does it",
+        tolerance="bit-exact", **rows[0], shapes=rows[1:])
+    for r in rows:
+        print(f"kernel pack_s2d4: {r['ms']:.4f} ms / bare {r['bare_ms']:.4f} "
+              f"(plain {r['plain_ms']:.3f}, library: none, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}",
+              flush=True)
+
+
 # the packed refine UNet's conv3x3 calls on the 4K path (refine_unet_s2d_core
 # at the quarter grid 576×1024 and the eighth grid 288×512), 7 each per pair
 CONV_SHAPES = (("enc1", 576, 1024, 416, 64), ("enc2", 576, 1024, 64, 32),
@@ -977,7 +1053,7 @@ def correlation_rows(peaks):
 # ---------------------------------------------------------------------------
 
 # the kernels each path must launch
-INFER_KERNELS = ("gather", "splat", "conv3x3")
+INFER_KERNELS = ("gather", "splat", "conv3x3", "pack_s2d4")
 TRAIN_KERNELS = ("gather", "splat", "gather_grad", "splat_grad")
 TEACHER_KERNELS = ("correlation", "gather")
 EVAL_KERNELS = INFER_KERNELS + ("interleave",)
@@ -1006,12 +1082,14 @@ def require_launched(seen, kernels, where):
 # launches per 4K ×8 pair: gather 30 (2 flowback and 2 im_tot gathers per
 # t, and the 2 half-resolution z gathers), splat 24 (2 level-0 splats per t,
 # and 2 feature splats at each of 5 levels), conv3x3 35 (5 packed convs per
-# t); per training step (S_trn = 3: synthesis at 4 levels): gather 24 (2 z,
-# 2 flowback and 2 im_tot gathers per level) and splat 16 (2 softmax splats
-# per level, 2 feature splats at each of 3 levels, 2 in the endflow loss),
-# and one VJP launch for each
-PER_PAIR = {"gather": 30, "splat": 24, "conv3x3": 35}
-PER_STEP = {"gather": 24, "splat": 16, "gather_grad": 24, "splat_grad": 16}
+# t), pack_s2d4 7 (the UNet's input, one per t); per training step (S_trn =
+# 3: synthesis at 4 levels): gather 24 (2 z, 2 flowback and 2 im_tot
+# gathers per level) and splat 16 (2 softmax splats per level, 2 feature
+# splats at each of 3 levels, 2 in the endflow loss), and one VJP launch for
+# each; no pack_s2d4 (training never takes the packed synthesis)
+PER_PAIR = {"gather": 30, "splat": 24, "conv3x3": 35, "pack_s2d4": 7}
+PER_STEP = {"gather": 24, "splat": 16, "gather_grad": 24, "splat_grad": 16,
+            "pack_s2d4": 0}
 # the VJP launches per step by form (fastwarp.FORMS): the z and im_tot
 # gathers warp data frames (coords only), the flowback gathers a flow (dimg
 # too); the softmax and endflow splats want dtx/dty, the feature splats'
@@ -1502,12 +1580,14 @@ def golden_evaluate(interp, frames, ts, gts, ps_float, card: str):
 SHARED = ["cuda:0", "cuda:0"]
 # launches per 4K ×8 pair: mode t on 2 shards synthesises 8 t slots (7
 # padded to a multiple of 2): gather 2 z + 4 per slot, splat 10 feature + 2
-# per slot, conv3x3 5 per slot, and each slot's plain rows through the
-# interleave; mode sp on 2 slabs: splat 10 feature + 2 per t and slab,
-# gather 2 im_tot per t and slab (the strict z maps and the pack's
-# flowbacks launch none), conv3x3 5 per t and slab
-PER_PAIR_T = {"gather": 34, "splat": 26, "conv3x3": 40, "interleave": 8}
-PER_PAIR_SP = {"gather": 28, "splat": 38, "conv3x3": 70}
+# per slot, conv3x3 5 and pack_s2d4 1 per slot, and each slot's plain rows
+# through the interleave; mode sp on 2 slabs: splat 10 feature + 2 per t and
+# slab, gather 2 im_tot per t and slab (the strict z maps and the pack's
+# flowbacks launch none), conv3x3 5 per t and slab, and no pack_s2d4 (the
+# slabs build their UNet input in plain PyTorch, parallel/spatial.py)
+PER_PAIR_T = {"gather": 34, "splat": 26, "conv3x3": 40, "interleave": 8,
+              "pack_s2d4": 8}
+PER_PAIR_SP = {"gather": 28, "splat": 38, "conv3x3": 70, "pack_s2d4": 0}
 # fldrx's bulk criteria for the sharded fast path against the unsharded
 # one (tests/test_parallel.py:92-101). On the card the splat's atomic adds
 # vary a 4K ×8 output's last bits from run to run, and a few pixels cross
@@ -2380,6 +2460,7 @@ def main() -> int:
     results["correlation"] = phase("2 correlation", correlation_rows, peaks)
     phase("2 interleave", check_interleave, "cuda", peaks, results)
     phase("2 deinterleave", check_deinterleave, "cuda", peaks, results)
+    phase("2 pack_s2d4", check_pack_s2d4, "cuda", peaks, results)
     phase("3 inference held", main_path_held)
     seen = phase("4 inference 4K", main_path_4k, card)
     phase("5a train step held", train_step_held)

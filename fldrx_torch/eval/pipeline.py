@@ -95,7 +95,8 @@ class Interpolator:
     # -- multi-t throughput mode: flow once per pair, synthesis per t ----
 
     def precompute_flow(self, frames):
-        """frames [B,2,H,W,3] → (flow, padded_frames, extras)."""
+        """frames [B,2,H,W,3] → (flow, padded_frames, extras); the padded
+        frames dense NHWC."""
         with trace.span("flow", request=True):
             with trace.span("ingest"):
                 frames = self._ingest(frames)
@@ -108,6 +109,11 @@ class Interpolator:
                                     self._compute_dtype)
                 with trace.span("extras"):
                     extras = flow_extras(self.params, self.cfg, flow, padded)
+                # padding can leave the frames channel-planar (F.pad on
+                # the card does); the synthesis's kernels read dense NHWC
+                # frames, so one copy a pair here spares one in each of
+                # them, a t
+                padded = padded.contiguous()
         return flow, padded, extras
 
     def synthesize_at(self, flow, padded_frames, t, orig_hw: Tuple[int, int],

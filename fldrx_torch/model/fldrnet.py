@@ -28,9 +28,10 @@ space-to-depth output the final blend reads in place, writing u-planes
 Spans (utils/trace.py, recorded only while a profiler runs) name the
 stages: `features` and `levels` of the flow (inference and training),
 `pack` and `z` of the t-independent extras, and for each t of a synthesis
-`splat`, `flowback`, `gather`, `refine_in` (the UNet's input: the
-concatenation, the cast and, packed, the space-to-depth), `unet`, `blend`
-and, packed into plain rows, `interleave`.
+`splat`, `flowback`, `gather`, `refine_in` (the UNet's input; packed, one
+launch of ops/repack.py's `pack_s2d4` kernel, which concatenates, casts and
+space-to-depths in one pass; else the concatenation and the cast),
+`unet`, `blend` and, packed into plain rows, `interleave`.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from ..device import resolve_device
 from ..ops import fastwarp
 from ..ops.block_pca import block_pca_features, pca_projection
 from ..ops.fastconv import conv3x3
-from ..ops.repack import interleave_planes
+from ..ops.repack import interleave_planes, pack_s2d4
 from ..ops.resize import resize_2d
 from ..ops.splat import softsplat, softsplat_norm, softsplat_vals
 from ..ops.warp import bwarp, ones_mask_sep, sample_coords
@@ -504,7 +505,8 @@ def synthesize_packed_multi(p: Params, flow_l: torch.Tensor,
     * the low-res flowback composition (gather at the flow grid),
       upsampled and masked with ones_mask_sep at full resolution;
     * im_tot gathers with the separable mask;
-    * the UNet in s2d4 form fed in canonical channel order;
+    * the UNet in s2d4 form fed in canonical channel order, its input
+      packed in one pass (`pack_s2d4`);
     * the log-t folded six-way blend with no divisor, into u-planes.
 
     The t-independent splat values are built once for the whole chunk.
@@ -559,9 +561,8 @@ def synthesize_packed_multi(p: Params, flow_l: torch.Tensor,
             sx, sy = sample_coords(fb1)
             im1 = fastwarp.gather(x1, sx, sy, mask=True)
         with trace.span("refine_in"):
-            refine_in = s2d(torch.cat([x0, x1, warped0, warped1, ft0, ft1,
-                                       fb0, fb1, im0, im1], -1)
-                            .to(compute_dtype), 4)
+            refine_in = pack_s2d4([x0, x1, warped0, warped1, ft0, ft1,
+                                   fb0, fb1, im0, im1], compute_dtype)
         with trace.span("unet"):
             logits = refine_unet_s2d_core(p["refine"], refine_in).float()
         with trace.span("blend"):

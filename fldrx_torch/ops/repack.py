@@ -1,5 +1,14 @@
-"""The u-plane layout of the packed synthesis's output, and its unpacks
-(counterpart of fldrx/ops/repack.py).
+"""The packed synthesis's layouts: the refine UNet's space-to-depth input,
+and the u-plane layout of its output with its unpacks (counterpart of
+fldrx/ops/repack.py).
+
+`pack_s2d4` builds the UNet's input from its sources in one pass: the
+channel concatenation, the cast to the UNet's dtype and the 4×4
+space-to-depth (model/fldrnet.py `s2d`'s cell-major order) that the plain
+version, `pack_s2d4_plain`, runs as three. A CUDA tensor launches the
+`pack_s2d4_kernel` of csrc/repack.cu (each source read once, the output
+written once: bytes bound it); a CPU tensor takes the plain version. fldrx
+has no kernel here (it leaves its concatenation to XLA).
 
 The u-plane form of a [H, W, C] frame is four planes [4, H/4, W·C], where
 row y of the frame is row y//4 of plane y%4. The packed synthesis blends in
@@ -19,6 +28,9 @@ chip_smoke.py holds it on the card.
 
 from __future__ import annotations
 
+import ctypes
+from typing import Sequence
+
 import numpy as np
 import torch
 
@@ -26,10 +38,16 @@ from ..utils import trace
 from . import _build
 
 __all__ = ["interleave_planes", "interleave_planes_plain", "extract_planes",
-           "extract_planes_plain", "planes_to_plain_np", "LAUNCHES"]
+           "extract_planes_plain", "planes_to_plain_np", "pack_s2d4",
+           "pack_s2d4_plain", "LAUNCHES"]
 
 LAUNCHES = trace.counters("repack", {"interleave": 0,
-                                     "deinterleave": 0})
+                                     "deinterleave": 0,
+                                     "pack_s2d4": 0})
+
+# pack_s2d4's limits: the kernel's source table and channels in a cell
+MAX_SOURCES = 12
+MAX_CHANNELS = 32
 
 
 def interleave_planes_plain(planes: torch.Tensor) -> torch.Tensor:
@@ -105,3 +123,84 @@ def planes_to_plain_np(a: np.ndarray) -> np.ndarray:
     a = a.reshape(*lead, 4, hp4, W, 3)
     a = np.moveaxis(a, -4, -3)                 # [..., hp4, 4, W, 3]
     return np.ascontiguousarray(a).reshape(*lead, hp4 * 4, W, 3)
+
+
+def pack_s2d4_plain(parts: Sequence[torch.Tensor],
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of `pack_s2d4`: the concatenation, the cast and the
+    space-to-depth, each a pass of its own."""
+    x = torch.cat(list(parts), -1).to(dtype)
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // 4, 4, W // 4, 4, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H // 4, W // 4, 16 * C)
+
+
+def _check_pack(parts, dtype: torch.dtype) -> int:
+    """pack_s2d4's refusals, the same on every device; returns C."""
+    if not 1 <= len(parts) <= MAX_SOURCES:
+        raise ValueError(f"pack_s2d4: {len(parts)} sources, expected 1 to "
+                         f"{MAX_SOURCES}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"pack_s2d4: output bfloat16 or float32, got {dtype}")
+    lead, device = parts[0].shape[:3], parts[0].device
+    C = 0
+    for x in parts:
+        shape = x.shape
+        if len(shape) != 4 or shape[:3] != lead or shape[3] < 1:
+            shapes = [tuple(p.shape) for p in parts]
+            raise ValueError(f"pack_s2d4: sources {shapes}, expected "
+                             "[B, H, W, c_i] with equal B, H, W")
+        if x.dtype != torch.float32:
+            raise TypeError(f"pack_s2d4: sources are float32, got {x.dtype}")
+        if x.device != device:
+            raise ValueError("pack_s2d4: sources on more than one device")
+        C += shape[3]
+    if lead[1] % 4 or lead[2] % 4:
+        raise ValueError(f"pack_s2d4: H×W {lead[1]}×{lead[2]}, expected "
+                         "multiples of 4")
+    if C > MAX_CHANNELS:
+        raise ValueError(f"pack_s2d4: {C} channels, at most {MAX_CHANNELS}")
+    return C
+
+
+def pack_s2d4(parts: Sequence[torch.Tensor],
+              dtype: torch.dtype) -> torch.Tensor:
+    """float32 NHWC sources [B, H, W, c_i] (H, W multiples of 4, C = Σc_i ≤
+    32) → [B, H/4, W/4, 16·C] in `dtype` (bfloat16 or float32), cell-major:
+    channel (u·4 + v)·C + offset_i + c holds source i's channel c at pixel
+    (4·y + u, 4·x + v). Equal bit for bit to `pack_s2d4_plain` (bfloat16
+    rounds to nearest even, as `.to` does). On the card one launch; a
+    source is read in place where its channels are contiguous and either
+    its pixels or its rows are (a view such as images[:, 0] at any batch
+    stride; a flow field that a resize left W-major), else copied."""
+    parts = list(parts)
+    C = _check_pack(parts, dtype)
+    if parts[0].device.type == "cpu":
+        return pack_s2d4_plain(parts, dtype)
+    B, H, W = parts[0].shape[:3]
+    ptrs, strides, chans = [], [], []
+    for k, x in enumerate(parts):
+        if x.requires_grad:
+            raise RuntimeError("pack_s2d4: the kernel is inference only")
+        c = x.shape[3]
+        sb, sh, sw, sc = x.stride()
+        if not ((sc == 1 or c == 1) and (sw == c or sh == c)):
+            x = parts[k] = x.contiguous()      # kept until the launch
+            sb, sh, sw, _ = x.stride()
+        ptrs.append(x.data_ptr())
+        strides += [sb, sh, sw]
+        chans.append(c)
+    out = torch.empty((B, H // 4, W // 4, 16 * C), dtype=dtype,
+                      device=parts[0].device)
+    n = len(parts)
+    ptrs = (ctypes.c_void_p * n)(*ptrs)
+    strides = (ctypes.c_longlong * (3 * n))(*strides)
+    chans = (ctypes.c_int * n)(*chans)
+    err = _build.library("repack").fldrx_pack_s2d4(
+        ctypes.addressof(ptrs), ctypes.addressof(strides),
+        ctypes.addressof(chans), n, out.data_ptr(), B, H, W,
+        int(dtype == torch.bfloat16),
+        torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, "pack_s2d4")
+    LAUNCHES["pack_s2d4"] += 1
+    return out

@@ -15,9 +15,9 @@ their structural zeros), as torch.utils.flop_counter.FlopCounterMode
 counts them.
 
 (a) Per kernel: `gather`, `splat`, `gather_grad`, `splat_grad`,
-`conv3x3`, `correlation`, `interleave` and `deinterleave` give (bytes,
-flops, the rate's index in PEAKS) for a kernel's shapes; `kernel_bound`
-turns them into chip_smoke.py phase 2's bound.
+`conv3x3`, `correlation`, `interleave`, `deinterleave` and `pack_s2d4`
+give (bytes, flops, the rate's index in PEAKS) for a kernel's shapes;
+`kernel_bound` turns them into chip_smoke.py phase 2's bound.
 
 (b) Per stage: `stages(H, W)` for a frame of H×W padded as the deploy
 mix pads it (bench_inputs.deploy_config: papermodel_test5, S_tst = 5,
@@ -117,6 +117,12 @@ def interleave(B: int, H: int, WC: int):
 
 
 deinterleave = interleave
+
+
+def pack_s2d4(B: int, H: int, W: int, C: int, out_bytes: int):
+    """C float32 channels of B·H·W pixels in, their space-to-depth out in
+    `out_bytes` an element: a copy with one rounding."""
+    return (F4 + out_bytes) * B * H * W * C, 0, F32
 
 
 def kernel_bound(peaks, work) -> Tuple[float, str]:
@@ -265,29 +271,27 @@ def levels(H: int, W: int) -> Work:
 
 
 def z(H: int, W: int) -> Work:
-    """flow_extras' z at half resolution: both frames and both flows
-    resized to H/2×W/2, z_metrics's two masked gathers there, |x − warp|
-    and the channel mean; out z0, z1 at half resolution."""
+    """flow_extras' z (its `z` span): both frames and both flows resized
+    to H/2×W/2, z_metrics's two masked gathers there, |x − warp| and the
+    channel mean, and z0, z1 upsampled to H×W."""
     h0, w0 = _grid(H, W, 0)
     Hh, Wh = H // 2, W // 2
     n = Hh * Wh
     mm = (resize_flops(2, H, W, 3, Hh, Wh)
-          + 2 * resize_flops(1, h0, w0, 2, Hh, Wh))
+          + 2 * resize_flops(1, h0, w0, 2, Hh, Wh)
+          + 2 * resize_flops(1, Hh, Wh, 1, H, W))
     other = 2 * _kernel(gather(1, Hh, Wh, 3)).other + 2 * 7.0 * n
-    return Work(F4 * (2 * 3 * H * W + 4 * h0 * w0 + 2 * n), mm=mm,
+    return Work(F4 * (2 * 3 * H * W + 4 * h0 * w0 + 2 * H * W), mm=mm,
                 other=other)
 
 
 def pack(H: int, W: int) -> Work:
-    """flow_extras' full-resolution inputs of the synthesis: flow_10 and
-    flow_01 upsampled from the flow grid (and scaled), z0 and z1 from
-    half resolution."""
+    """flow_extras' full-resolution flows (its `pack` span): flow_10 and
+    flow_01 upsampled from the flow grid and scaled."""
     h0, w0 = _grid(H, W, 0)
-    mm = (2 * resize_flops(1, h0, w0, 2, H, W)
-          + 2 * resize_flops(1, H // 2, W // 2, 1, H, W))
-    return Work(F4 * (4 * h0 * w0 + 2 * (H // 2) * (W // 2)
-                      + 2 * 2 * H * W + 2 * H * W),
-                mm=mm, other=2 * 2.0 * H * W)
+    mm = 2 * resize_flops(1, h0, w0, 2, H, W)
+    return Work(F4 * (4 * h0 * w0 + 2 * 2 * H * W), mm=mm,
+                other=2 * 2.0 * H * W)
 
 
 def synth_splat(H: int, W: int) -> Work:
@@ -309,9 +313,8 @@ def synth_gather(H: int, W: int) -> Work:
 
 def refine_in(H: int, W: int) -> Work:
     """One t's UNet input: the ten float32 tensors (26 channels) in, the
-    bf16 s2d4 tensor out (the concatenation, the cast and the s2d
-    permutation between them move 3× these bytes)."""
-    return Work(UNET_IN * H * W * (F4 + BF2))
+    bf16 s2d4 tensor out (one launch of the pack_s2d4 kernel)."""
+    return _kernel(pack_s2d4(1, H, W, UNET_IN, BF2))
 
 
 def unet_cat(H: int, W: int) -> Work:

@@ -14,8 +14,8 @@ channels and the atomicAdd accumulations (splat, gather_grad's dimg)
 change order, so those are held at 1e-4·(1 + |ref|); the correlation
 kernel sums its C products in channel order within each channel group and
 adds the groups in a fixed order, where torch.mean does not, held at
-1e-5·(1 + |ref|); the interleave
-and the deinterleave are permutations, held bit for bit; conv3x3 rounds its
+1e-5·(1 + |ref|); the interleave, the deinterleave and pack_s2d4 move
+values (pack_s2d4 rounds each once, as `.to` does), held bit for bit; conv3x3 rounds its
 output to bf16 (one ulp is 1/128 relative), held at 2e-2 max abs and 1e-2
 relative L2 against float32 F.conv2d.
 
@@ -63,6 +63,8 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         "fldrx_interleave_planes": [_P] * 2 + [_I] * 3 + [_P],
         # rows, out, B, H, row_bytes, stream
         "fldrx_extract_planes": [_P] * 2 + [_I] * 3 + [_P],
+        # ptrs, strides, chans, n, out, B, H, W, out_bf16, stream
+        "fldrx_pack_s2d4": [_P] * 3 + [_I, _P] + [_I] * 4 + [_P],
     }),
     ("decoder", {
         # path, w, h
@@ -545,3 +547,81 @@ def test_deinterleave_kernel_matches_plain(card, shape, dtype):
     assert torch.equal(repack.interleave_planes(got), rows)
     with pytest.raises(RuntimeError, match="inference only"):
         repack.extract_planes(rows.float().requires_grad_())
+
+
+TEN = (3, 3, 3, 3, 2, 2, 2, 2, 3, 3)      # the packed synthesis's sources
+
+
+def _pack_parts(B, H, W, layout, g, dev):
+    """The packed synthesis's ten sources (26 channels): x0 and x1
+    batch-strided views of one [B, 2, H, W, 3] tensor, the four 2-channel
+    flow fields as the layout says (dense rows; "columns": W-major, as a
+    resize leaves them; "offset": rows one float into their storage, off
+    every 16-byte boundary; "planar": channels last in memory, which the
+    wrapper copies)."""
+    offset = int(layout == "offset")
+
+    def flow():
+        if layout == "columns":
+            return _at_offset((B, W, H, 2), 0, g, dev).transpose(1, 2)
+        if layout == "planar":
+            return _at_offset((B, 2, H, W), 0, g, dev).permute(0, 2, 3, 1)
+        return _at_offset((B, H, W, 2), offset, g, dev)
+
+    images = _at_offset((B, 2, H, W, 3), offset, g, dev)
+    return ([images[:, 0], images[:, 1]]
+            + [_at_offset((B, H, W, 3), offset, g, dev) for _ in range(2)]
+            + [flow() for _ in range(4)]
+            + [_at_offset((B, H, W, 3), offset, g, dev) for _ in range(2)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,layout", [
+    (1, 2304, 4096, "columns"),   # the padded 4K frame, as the path has it
+    (2, 8, 4 * 69, "rows"),       # 69 cells a row: no multiple of 32 or 16
+    (2, 12, 4 * 37, "columns"),
+    (2, 12, 4 * 37, "offset"),    # the 4-byte loads
+    (1, 8, 4 * 5, "planar"),
+])
+def test_pack_s2d4_kernel_matches_plain(card, B, H, W, layout, dtype):
+    """pack_s2d4's kernel against its plain version, bit for bit, one
+    launch a call, with x0 and x1 read in place as batch-strided views."""
+    g = torch.Generator().manual_seed(H + W)
+    parts = _pack_parts(B, H, W, layout, g, card)
+    before = repack.LAUNCHES["pack_s2d4"]
+    got = repack.pack_s2d4(parts, dtype)
+    ref = repack.pack_s2d4_plain(parts, dtype)
+    torch.cuda.synchronize()
+    assert repack.LAUNCHES["pack_s2d4"] == before + 1
+    assert got.shape == ref.shape == (B, H // 4, W // 4, 16 * 26)
+    assert got.dtype == dtype
+    assert torch.equal(got, ref)
+    with pytest.raises(RuntimeError, match="inference only"):
+        repack.pack_s2d4([parts[2].requires_grad_()], dtype)
+
+
+@pytest.mark.cuda
+def test_pack_s2d4_launches_once_a_t(card):
+    """One packed synthesis over a chunk of 4 t values launches pack_s2d4
+    exactly 4 times."""
+    from fldrx_torch.config import papermodel
+    from fldrx_torch.model import fldrnet
+
+    cfg = papermodel().replace(fast_warp=True, packed_synth=True)
+    params = fldrnet.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device=card)
+    g = torch.Generator().manual_seed(1)
+    B, H, W = 1, 384, 384
+    images = (torch.rand(B, 2, H, W, 3, generator=g) * 2 - 1).to(card)
+    flow_l = (torch.rand(B, H // 4, W // 4, 4, generator=g) * 6 - 3).to(card)
+    assert fldrnet.can_use_packed(flow_l, images)
+    ts = [torch.full((B, 1), t, device=card) for t in (0.2, 0.4, 0.6, 0.8)]
+    before = repack.LAUNCHES["pack_s2d4"]
+    with torch.inference_mode():
+        out = fldrnet.synthesize_packed_multi(
+            params["vfinet"], flow_l, images, ts,
+            compute_dtype=torch.bfloat16, planes_out=True)
+    torch.cuda.synchronize()
+    assert len(out) == 4
+    assert repack.LAUNCHES["pack_s2d4"] == before + 4

@@ -1,5 +1,8 @@
-"""fldrx_torch's u-plane layout held against the JAX package on the CPU:
-the interleave (the plain version against fldrx's Pallas kernel in
+"""fldrx_torch's packed-synthesis layouts on the CPU: the refine UNet's
+s2d4 input (`pack_s2d4`'s plain version against the cell-major index
+formula written out and against s2d of the concatenation, and its
+refusals); and the u-plane layout held against the JAX package: the
+interleave (the plain version against fldrx's Pallas kernel in
 interpret mode, bit-exact), the deinterleave (against fldrx's
 extract_planes through its XLA fallback and through its Pallas kernels in
 interpret mode, bit-exact, and its refusals), and the packed synthesis's
@@ -67,6 +70,125 @@ def test_interleave_matches_fldrx(shape, dtype):
 def test_interleave_refuses_bad_shapes():
     with pytest.raises(ValueError, match="interleave_planes"):
         repack.interleave_planes(torch.zeros(1, 3, 2, 6))
+
+
+TEN = (3, 3, 3, 3, 2, 2, 2, 2, 3, 3)      # the packed synthesis's sources
+
+
+def _pack_sources(widths, B: int, H: int, W: int, seed: int):
+    """float32 sources [B, H, W, c] of `widths`; the first two, where they
+    are 3 wide, batch-strided views images[:, 0] and images[:, 1] of one
+    [B, 2, H, W, 3] tensor, as the packed synthesis's x0 and x1 are."""
+    g = torch.Generator().manual_seed(seed)
+    images = torch.randn(B, 2, H, W, 3, generator=g)
+    parts = [torch.randn(B, H, W, c, generator=g) for c in widths]
+    for k in range(2):
+        if widths[k] == 3:
+            parts[k] = images[:, k]
+    return parts
+
+
+def _pack_by_index(parts, dtype) -> torch.Tensor:
+    """out[b, y, x, (u·4 + v)·C + offset_i + c] = source_i[b, 4y + u,
+    4x + v, c], element by element."""
+    B, H, W = parts[0].shape[:3]
+    C = sum(x.shape[3] for x in parts)
+    out = torch.empty(B, H // 4, W // 4, 16 * C, dtype=dtype)
+    off = 0
+    for x in parts:
+        for u in range(4):
+            for v in range(4):
+                for c in range(x.shape[3]):
+                    out[..., (u * 4 + v) * C + off + c] = \
+                        x[:, u::4, v::4, c].to(dtype)
+        off += x.shape[3]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("widths,B,H,W", [
+    (TEN, 2, 8, 12),
+    (TEN, 1, 12, 20),
+    ((3, 3, 1, 4, 7), 2, 4, 8),             # another mix, C = 18
+    ((3, 3, 26), 1, 8, 4),                  # C = 32, the most it takes
+])
+def test_pack_s2d4_plain(widths, B, H, W, dtype):
+    """pack_s2d4 on CPU tensors (the plain version, no launch) against
+    the index formula and against s2d of the concatenation in `dtype`, bit
+    for bit, with x0 and x1 read as batch-strided views."""
+    parts = _pack_sources(widths, B, H, W, seed=H + W + len(widths))
+    assert parts[0].stride(0) == 2 * H * W * 3
+    before = dict(repack.LAUNCHES)
+    got = repack.pack_s2d4(parts, dtype)
+    assert repack.LAUNCHES == before
+    C = sum(widths)
+    assert got.shape == (B, H // 4, W // 4, 16 * C) and got.dtype == dtype
+    assert torch.equal(got, _pack_by_index(parts, dtype))
+    assert torch.equal(got, tf.s2d(torch.cat(parts, -1).to(dtype), 4))
+    assert torch.equal(repack.pack_s2d4_plain(parts, dtype), got)
+
+
+@pytest.mark.parametrize("case,error", [
+    ("h_not_4", ValueError),
+    ("w_not_4", ValueError),
+    ("b_differs", ValueError),
+    ("h_differs", ValueError),
+    ("w_differs", ValueError),
+    ("out_float16", TypeError),
+    ("out_int8", TypeError),
+    ("source_float64", TypeError),
+    ("over_32_channels", ValueError),
+    ("no_sources", ValueError),
+    ("over_12_sources", ValueError),
+])
+def test_pack_s2d4_refuses(case, error):
+    """pack_s2d4 refuses, on the CPU as on the card: H or W not a
+    multiple of 4, sources of other B, H or W, an output other than
+    bfloat16 or float32, a source not float32, more than 32 channels, and
+    a source list the kernel's table cannot hold."""
+    def src(B=1, H=8, W=8, c=3, dtype=torch.float32):
+        return torch.zeros(B, H, W, c, dtype=dtype)
+    parts, dtype = [src(), src(c=2)], torch.bfloat16
+    if case == "h_not_4":
+        parts = [src(H=6), src(H=6, c=2)]
+    elif case == "w_not_4":
+        parts = [src(W=10), src(W=10, c=2)]
+    elif case == "b_differs":
+        parts[1] = src(B=2, c=2)
+    elif case == "h_differs":
+        parts[1] = src(H=4, c=2)
+    elif case == "w_differs":
+        parts[1] = src(W=4, c=2)
+    elif case == "out_float16":
+        dtype = torch.float16
+    elif case == "out_int8":
+        dtype = torch.int8
+    elif case == "source_float64":
+        parts[1] = src(c=2, dtype=torch.float64)
+    elif case == "over_32_channels":
+        parts = [src(c=3)] * 10 + [src(c=3)]
+    elif case == "no_sources":
+        parts = []
+    elif case == "over_12_sources":
+        parts = [src(c=1)] * 13
+    with pytest.raises(error, match="pack_s2d4"):
+        repack.pack_s2d4(parts, dtype)
+
+
+def test_the_pair_reaches_the_synthesis_dense():
+    """precompute_flow hands the synthesis dense NHWC frames, whatever
+    layout padding leaves (channel-planar on the card), so pack_s2d4 and
+    the gathers read x0 = images[:, 0] and x1 in place, with no copy a
+    t."""
+    from fldrx_torch.api import prepare_model
+    from fldrx_torch.bench_inputs import deploy_config
+
+    interp = prepare_model(cfg=deploy_config(), device="cpu")[0]
+    frames = torch.as_tensor((np.random.RandomState(4).rand(
+        1, 2, 200, 300, 3) * 255).astype(np.uint8))
+    _, padded, _ = interp.precompute_flow(frames)
+    assert padded.shape == (1, 2, 256, 512, 3)
+    assert padded[:, 0].is_contiguous() and padded[:, 1].is_contiguous()
 
 
 def _fldrx_extract_planes(img, interpret: bool) -> np.ndarray:

@@ -48,6 +48,7 @@ TABLE = [
     (R.conv3x3, (576, 1024, 256, 96), "0.264", "operations"),
     (R.interleave, (1, 2304, 12288), "0.068", "bytes"),
     (R.deinterleave, (1, 2304, 12288), "0.068", "bytes"),
+    (R.pack_s2d4, (1, 2304, 4096, 26, 2), "0.439", "bytes"),
     (R.correlation, (8, 128, 128, 32), "0.0227", "bytes"),
     (R.correlation, (8, 64, 64, 64), "0.0082", "bytes"),
     (R.correlation, (8, 32, 32, 96), "0.0027", "bytes"),
