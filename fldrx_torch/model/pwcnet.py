@@ -17,6 +17,13 @@ differentiable forms, so the same functions serve callers that need
 gradients; `get_bidirectional_flow` runs under `torch.inference_mode()`, as
 fldrx's teacher runs without gradients.
 
+Spans (utils/trace.py): `teacher`, a request, around each
+`get_bidirectional_flow` call; in it, per direction, `resize` (to and from
+the 64-divisible size), `extractor`, `decoders` and `refiner`; in
+`decoders`, per level, `corr` around the cost volume and `warp` around the
+backward warp, so that the decoders' own time is their convs, deconvs and
+concatenations.
+
 The trained teacher's checkpoint is not in the repository: until it is,
 `init_pwc_params` gives seeded random weights at the published widths.
 """
@@ -33,6 +40,7 @@ from ..device import resolve_device
 from ..ops.correlation import correlation_diff
 from ..ops.fastwarp import gather_diff
 from ..ops.resize import resize_2d
+from ..utils import trace
 from ..weights import named_leaves, unflatten_params
 
 Params = Dict[str, Any]
@@ -100,13 +108,17 @@ def backward_warp_pwc(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 def decoder(p: Params, level: int, feat1: torch.Tensor, feat2: torch.Tensor,
             previous: Optional[Dict[str, torch.Tensor]]):
     if previous is None:
-        feat = _lrelu(correlation_diff(feat1, feat2))
+        with trace.span("corr"):
+            vol = correlation_diff(feat1, feat2)
+        feat = _lrelu(vol)
     else:
         flow_in = deconv(p["upflow"], previous["flow"])
         upfeat = deconv(p["upfeat"], previous["feat"])
-        warped = backward_warp_pwc(feat2, flow_in * _DBL_BACKWARD[level])
-        vol = _lrelu(correlation_diff(feat1, warped))
-        feat = torch.cat([vol, feat1, flow_in, upfeat], -1)
+        with trace.span("warp"):
+            warped = backward_warp_pwc(feat2, flow_in * _DBL_BACKWARD[level])
+        with trace.span("corr"):
+            vol = correlation_diff(feat1, warped)
+        feat = torch.cat([_lrelu(vol), feat1, flow_in, upfeat], -1)
     for name in _DEC_CONVS:
         feat = torch.cat([_lrelu(_conv(p[name], feat)), feat], -1)
     return {"flow": _conv(p["six"], feat), "feat": feat}
@@ -130,18 +142,23 @@ def pwc_forward(params: Params, im1: torch.Tensor,
     ph = int(np.ceil(H / 64.0) * 64)
     pw = int(np.ceil(W / 64.0) * 64)
     if (ph, pw) != (H, W):
-        im1 = resize_2d(im1, (ph, pw), "bilinear")
-        im2 = resize_2d(im2, (ph, pw), "bilinear")
+        with trace.span("resize"):
+            im1 = resize_2d(im1, (ph, pw), "bilinear")
+            im2 = resize_2d(im2, (ph, pw), "bilinear")
 
-    f1 = extractor(params["extractor"], im1)
-    f2 = extractor(params["extractor"], im2)
+    with trace.span("extractor"):
+        f1 = extractor(params["extractor"], im1)
+        f2 = extractor(params["extractor"], im2)
     est = None
-    for level in (6, 5, 4, 3, 2):
-        est = decoder(params[f"dec{level}"], level, f1[level - 1],
-                      f2[level - 1], est)
-    flow = est["flow"] + refiner(params["refiner"], est["feat"])
+    with trace.span("decoders"):
+        for level in (6, 5, 4, 3, 2):
+            est = decoder(params[f"dec{level}"], level, f1[level - 1],
+                          f2[level - 1], est)
+    with trace.span("refiner"):
+        flow = est["flow"] + refiner(params["refiner"], est["feat"])
 
-    flow = 20.0 * resize_2d(flow, (H, W), "bilinear")
+    with trace.span("resize"):
+        flow = 20.0 * resize_2d(flow, (H, W), "bilinear")
     return flow * torch.tensor([W / pw, H / ph], dtype=flow.dtype,
                                device=flow.device)
 
@@ -149,8 +166,9 @@ def pwc_forward(params: Params, im1: torch.Tensor,
 def get_bidirectional_flow(params: Params, im0: torch.Tensor,
                            im1: torch.Tensor) -> torch.Tensor:
     """The teacher's get_flow (reference useful.py:112-117), without
-    gradients: [B,H,W,4] = (flow_10, flow_01)."""
-    with torch.inference_mode():
+    gradients: [B,H,W,4] = (flow_10, flow_01). One `teacher` span, a
+    request."""
+    with torch.inference_mode(), trace.span("teacher", request=True):
         flow01 = pwc_forward(params, im0, im1)
         flow10 = pwc_forward(params, im1, im0)
         return torch.cat([flow10, flow01], -1)

@@ -17,10 +17,10 @@ fresh parameters with the PCA fitted on the first batch): a warm-up step,
 then one step profiled.
 
 --teacher: chip_smoke.py's full-width teacher call (seeded random weights
-at the published widths, 8 pairs of 512×512 bench texture): one
-direction's stages in spans of this tool (extractor, each decoder, refiner
-and resize, each with the peak memory it reached), the other direction
-whole; a warm-up call, then one call profiled.
+at the published widths, 8 pairs of 512×512 bench texture, TF32 off),
+`get_bidirectional_flow` with the program's own spans (`teacher` ⊃
+`extractor`, `decoders` ⊃ `corr`, `warp`, `refiner`, `resize`): a warm-up
+call, then one call profiled.
 
 Stage times come from the port's spans (utils/trace.py), recorded in the
 profiled run with nothing fenced: each span path's calls, device ms, device
@@ -39,7 +39,6 @@ and device ms; the full table goes to --out.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
@@ -131,7 +130,7 @@ def idle_gaps(ops: Sequence[Interval], spans: Sequence[Interval],
 
 
 def pair_runner(multiple: int = 8):
-    """One 4K pair at ×multiple: run() → {}."""
+    """One 4K pair at ×multiple: run()."""
     from ..api import prepare_model
 
     cfg = deploy_config()
@@ -146,13 +145,12 @@ def pair_runner(multiple: int = 8):
             interp.synthesize_multi_at(flow, padded,
                                        t_values[k:k + cfg.t_chunk], (H, W),
                                        extras)
-        return {}
 
     return run
 
 
 def train_runner():
-    """One full-size train step: run() → {}."""
+    """One full-size train step: run()."""
     from ..bench_inputs import train_config
     from ..model.fldrnet import init_params
     from ..train.loop import assign_params, fit_pca_from_batch
@@ -174,17 +172,15 @@ def train_runner():
 
     def run():
         step(state, batch)
-        return {}
 
     return run
 
 
 def teacher_runner():
-    """One bidirectional teacher call: run() → {"stage_peak_mem_gib":
-    {stage: the peak memory in GiB it reached}}."""
+    """One bidirectional teacher call, `get_bidirectional_flow`: run()."""
     from ..model import pwcnet
-    from ..ops.resize import resize_2d
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     params = pwcnet.init_pwc_params(torch.Generator().manual_seed(0), "cuda")
     fr = train_batch(512, np.full((8, 1), 0.5, np.float32), 7)["frames"]
@@ -192,33 +188,7 @@ def teacher_runner():
     im0, im1 = fr[:, 0], fr[:, 1]
 
     def run():
-        peaks = {}
-
-        @contextlib.contextmanager
-        def stage(name):
-            torch.cuda.reset_peak_memory_stats()
-            with trace.span(name):
-                yield
-            peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
-
-        with torch.inference_mode():
-            mean = torch.tensor(pwcnet._MEAN, device="cuda")
-            with stage("extractor_01"):
-                f1 = pwcnet.extractor(params["extractor"], im0 - mean)
-                f2 = pwcnet.extractor(params["extractor"], im1 - mean)
-            est = None
-            for level in (6, 5, 4, 3, 2):
-                with stage(f"decoder{level}_01"):
-                    est = pwcnet.decoder(params[f"dec{level}"], level,
-                                         f1[level - 1], f2[level - 1], est)
-            with stage("refiner_01"):
-                flow = est["flow"] + pwcnet.refiner(params["refiner"],
-                                                    est["feat"])
-            with stage("resize_01"):
-                20.0 * resize_2d(flow, (512, 512), "bilinear")
-            with stage("forward_10"):
-                pwcnet.pwc_forward(params, im1, im0)
-        return {"stage_peak_mem_gib": peaks}
+        pwcnet.get_bidirectional_flow(params, im0, im1)
 
     return run
 
@@ -255,11 +225,10 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.profiler.record_function(WINDOW):
-            extra = run()
+            run()
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    peak = max([torch.cuda.max_memory_allocated() / 2 ** 30]
-               + list(extra.get("stage_peak_mem_gib", {}).values()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     snap = trace.snapshot()
     stages = {p: {k: r[k] for k in ("calls", "device_ms", "self_device_ms",
                                     "host_ms", "launches")}
@@ -279,7 +248,7 @@ def main(argv=None) -> int:
     with open(out_path, "w") as f:
         f.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=80))
-    print(json.dumps(dict({
+    print(json.dumps({
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -293,8 +262,7 @@ def main(argv=None) -> int:
         "warp_kernels": [r for r in top if "namespace)::" in r["name"]
                          and ("gather" in r["name"] or "splat" in r["name"])],
         "correlation_kernels": [r for r in top
-                                if "correlation_kernel" in r["name"]]},
-        **extra)))
+                                if "correlation_kernel" in r["name"]]}))
     return 0
 
 

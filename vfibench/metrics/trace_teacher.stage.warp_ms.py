@@ -1,0 +1,17 @@
+"""Device ms a teacher call in its eight `warp` spans, the backward warps
+of the second image's features (the sample positions and one gather
+kernel launch each). The program's own spans
+(fldrx_torch/model/pwcnet.py), the median over the traced run's calls."""
+
+UNIT = "ms"
+BETTER = "lower"
+SOURCE = "program_span"
+LAYER = "teacher: model/pwcnet.py with ops/ and csrc/"
+MOVES = "samples_per_s"
+WORKLOADS = ["teacher_b8_512"]
+
+
+def read(rec):
+    from vfibench.metrics._spans import per_request
+
+    return per_request(rec, "teacher", "teacher", ["teacher/decoders/warp"])
