@@ -49,7 +49,11 @@ script exits non-zero:
      from its ten sources at the padded 4K frame (26 channels, x0 and x1
      batch-strided views, the flow fields W-major) in bfloat16 and in
      float32, bit for bit, timed also as the plain concatenation, cast and
-     s2d copy. Each against its plain version on the
+     s2d copy; and the resize's tap kernel at three of the 4K path's
+     resizes (RESIZE_ROWS: the pyramid's level 1 of both frames, a flow ×8
+     upsample from a channel slice, a z map ×2 up), bit for bit against its
+     plain version and within 2e-6·max|x| of the dense form, timed also as
+     the dense form and F.interpolate. Each against its plain version on the
      same inputs (the gather within 1e-5, splat_grad's dvals bit for bit,
      the splat and the other VJP outputs within 1e-4·(1+|ref|), the
      correlation within 1e-5·(1+|ref|)), with the
@@ -69,7 +73,8 @@ script exits non-zero:
      outputs finite and in [-1.1, 1.1];
      frames/s and peak memory. Kernel launch counts are zeroed just before
      the timed pairs and read after; each pair must launch exactly gather
-     30, splat 24, conv3x3 35 and pack_s2d4 7 times (PER_PAIR).
+     30, splat 24, conv3x3 35, pack_s2d4 7 and resize 31 times
+     (PER_PAIR).
   5a. train step held: the real checkpoint on cuda and on cpu, one
      make_train_step each on the same batch (B=2, 256×256, S_trn=3, bench
      texture with a per-sample pan, t from a seeded torch.Generator);
@@ -82,7 +87,8 @@ script exits non-zero:
      steps fenced by torch.cuda.synchronize(); losses finite; ms per step,
      samples/s, peak memory and kernel launches per step (counts zeroed
      just before the timed steps; exactly gather 24, splat 16,
-     gather_grad 24 and splat_grad 16 per step, PER_STEP, and the VJP
+     gather_grad 24 and splat_grad 16 per step and no pack_s2d4 or
+     resize, PER_STEP, and the VJP
      launches per form, FORMS_PER_STEP); then a SaveManager save into a
      temporary directory and a load that must restore the parameters and
      the optimiser state exactly. The card machine has no PIL and no JAX,
@@ -97,8 +103,8 @@ script exits non-zero:
      recipe's batch, 8 pairs of 512×512 crops of the bench texture; one
      warm-up call then 5 timed calls fenced by torch.cuda.synchronize();
      ms per bidirectional call, peak memory, and launches per call, which
-     must be correlation 10 (5 decoders × 2 directions) and gather 8 (4
-     warped decoders × 2).
+     must be correlation 10 (5 decoders × 2 directions), gather 8 (4
+     warped decoders × 2) and resize 2 (the flow back to full size × 2).
   7. golden clip on the card: (a) papermodel S_tst=3, fast_warp, float32 at
      512×768, pan family ×8, mean within 0.05 dB of 44.828
      (tests/test_goldenclip.py's pin); (b) the deploy mix at 2160×4096, pan
@@ -793,6 +799,94 @@ def check_pack_s2d4(dev, peaks, results):
               flush=True)
 
 
+# the 4K path's resizes (the padded 2304×4096 frame) that phase 2 times:
+# (label, input shape, output size, mode, taps); the ×8 upsample reads a
+# channel slice of the flow field, as flow_extras does
+RESIZE_ROWS = (
+    ("pyramid level 1", (2, 2304, 4096, 3), (1152, 2048), "bicubic", 4),
+    ("flow x8 upsample", (1, 288, 512, 2), (2304, 4096), "bilinear", 2),
+    ("z map up", (1, 1152, 2048, 1), (2304, 4096), "bilinear", 2),
+)
+
+
+def check_resize(dev, peaks, results):
+    """Phase 2 at the 4K path's resizes (RESIZE_ROWS): the tap kernel bit
+    for bit against its plain version and within 2e-6·max|x| of the dense
+    form, timed through the wrapper, as the bare launch, as the plain
+    version, as the dense form (the two einsums it replaced) and as
+    F.interpolate, the library call (which the port never makes); the bare
+    launch also on the device alone (`queued_ms`)."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from fldrx_torch.ops import resize
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for label, shape, dst, mode, taps in RESIZE_ROWS:
+        if label.startswith("flow"):
+            x = torch.randn(*shape[:-1], 4, device=dev, generator=g)[..., :2]
+        else:
+            x = torch.randn(shape, device=dev, generator=g)
+        with torch.inference_mode():
+            got = resize.resize_2d(x, dst, mode)
+        plain = resize.resize_taps_plain(x, dst, mode)
+        dense = resize._resize_dense(x, *dst, mode, False)
+        torch.cuda.synchronize()
+        err = (got - dense).abs().max().item()
+        if not torch.equal(got, plain):
+            raise AssertionError(f"resize ({label}) disagrees with its plain "
+                                 "version")
+        if not err <= 2e-6 * x.abs().max().item():
+            raise AssertionError(f"resize ({label}) against the dense form: "
+                                 f"max abs {err}")
+        N, H, W, C = shape
+        iy, wy = resize._taps(H, dst[0], mode, False, x.device)
+        ix, wx = resize._taps(W, dst[1], mode, False, x.device)
+        tw, floats, spans = resize._tile(W, dst[1], mode, False, C, x.device)
+        strides = (ctypes.c_longlong * 4)(*x.stride())
+        bare = bare_launch("fldrx_resize_taps_f32", x,
+                           ctypes.addressof(strides), N, H, W, C, iy, wy,
+                           iy.shape[1], ix, wx, ix.shape[1], *dst, tw, spans,
+                           floats, got, lib="resize")
+        nchw = x.permute(0, 3, 1, 2)
+        b, by = bound(peaks, "resize_taps", N, H, W, C, *dst, taps)
+
+        def wrapper():
+            with torch.inference_mode():
+                resize.resize_2d(x, dst, mode)
+
+        rows.append(dict(
+            ms=median_ms(wrapper), bare_ms=median_ms(bare),
+            queued_ms=queued_ms(bare),
+            plain_ms=median_ms(lambda: resize.resize_taps_plain(x, dst,
+                                                                mode)),
+            dense_ms=median_ms(lambda: resize._resize_dense(x, *dst, mode,
+                                                            False)),
+            library_ms=median_ms(lambda: F.interpolate(
+                nchw, size=dst, mode=mode, align_corners=False)),
+            bound_ms=b, bound_by=by, max_abs_err=err,
+            shape=f"{label}: {'x'.join(map(str, shape))} -> "
+                  f"{dst[0]}x{dst[1]} {mode}"))
+        del x, got, plain, dense, nchw, bare, strides
+    torch.cuda.empty_cache()
+    results["resize"] = dict(
+        name="resize", route="cuda", source="fldrx_torch/csrc/resize.cu",
+        replaces="none: fldrx leaves its resize to XLA as two dense einsums "
+                 "(fldrx/ops/resize.py:117)",
+        library_call="F.interpolate (the port never calls it)",
+        tolerance="bit-exact against the plain version, 2e-6·max|x| "
+                  "against the dense form", **rows[0], shapes=rows[1:])
+    for r in rows:
+        print(f"kernel resize: {r['ms']:.4f} ms / bare {r['bare_ms']:.4f} "
+              f"/ device {r['queued_ms']:.4f} (plain {r['plain_ms']:.3f}, dense {r['dense_ms']:.3f}, "
+              f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']}; err {r['max_abs_err']:.3g}) at "
+              f"{r['shape']}", flush=True)
+
+
 # the packed refine UNet's conv3x3 calls on the 4K path (refine_unet_s2d_core
 # at the quarter grid 576×1024 and the eighth grid 288×512), 7 each per pair
 CONV_SHAPES = (("enc1", 576, 1024, 416, 64), ("enc2", 576, 1024, 64, 32),
@@ -1060,9 +1154,9 @@ EVAL_KERNELS = INFER_KERNELS + ("interleave",)
 
 
 def _counters():
-    from fldrx_torch.ops import correlation, fastconv, fastwarp, repack
+    from fldrx_torch.ops import correlation, fastconv, fastwarp, repack, resize
     return (fastwarp.LAUNCHES, fastconv.LAUNCHES, correlation.LAUNCHES,
-            repack.LAUNCHES)
+            repack.LAUNCHES, resize.LAUNCHES)
 
 
 def launches():
@@ -1082,14 +1176,19 @@ def require_launched(seen, kernels, where):
 # launches per 4K ×8 pair: gather 30 (2 flowback and 2 im_tot gathers per
 # t, and the 2 half-resolution z gathers), splat 24 (2 level-0 splats per t,
 # and 2 feature splats at each of 5 levels), conv3x3 35 (5 packed convs per
-# t), pack_s2d4 7 (the UNet's input, one per t); per training step (S_trn =
-# 3: synthesis at 4 levels): gather 24 (2 z, 2 flowback and 2 im_tot
-# gathers per level) and splat 16 (2 softmax splats per level, 2 feature
-# splats at each of 3 levels, 2 in the endflow loss), and one VJP launch for
-# each; no pack_s2d4 (training never takes the packed synthesis)
-PER_PAIR = {"gather": 30, "splat": 24, "conv3x3": 35, "pack_s2d4": 7}
+# t), pack_s2d4 7 (the UNet's input, one per t), resize 31 (the pyramid's
+# 5 levels, the 5 levels' flow upsamples, 7 in flow_extras: 2 full-res
+# flows, the frames, 2 flows to half size and 2 z maps back; 2 flowbacks
+# per t); per training step (S_trn = 3: synthesis at 4 levels): gather 24
+# (2 z, 2 flowback and 2 im_tot gathers per level) and splat 16 (2 softmax
+# splats per level, 2 feature splats at each of 3 levels, 2 in the endflow
+# loss), and one VJP launch for each; no pack_s2d4 (training never takes
+# the packed synthesis); no resize (a step runs in grad mode, where
+# resize_2d keeps the dense form)
+PER_PAIR = {"gather": 30, "splat": 24, "conv3x3": 35, "pack_s2d4": 7,
+            "resize": 31}
 PER_STEP = {"gather": 24, "splat": 16, "gather_grad": 24, "splat_grad": 16,
-            "pack_s2d4": 0}
+            "pack_s2d4": 0, "resize": 0}
 # the VJP launches per step by form (fastwarp.FORMS): the z and im_tot
 # gathers warp data frames (coords only), the flowback gathers a flow (dimg
 # too); the softmax and endflow splats want dtx/dty, the feature splats'
@@ -1428,9 +1527,10 @@ def teacher_full(card: str):
         raise AssertionError(f"teacher output {tuple(out.shape)}, finite "
                              f"{finite}")
     require_launched(seen, TEACHER_KERNELS, "teacher at full width")
-    if per_call != {"correlation": 10, "gather": 8}:
+    if per_call != {"correlation": 10, "gather": 8, "resize": 2}:
         raise AssertionError(f"teacher launches per call {per_call}, "
-                             "expected correlation 10 and gather 8")
+                             "expected correlation 10, gather 8 and "
+                             "resize 2")
     return seen
 
 
@@ -1580,14 +1680,17 @@ def golden_evaluate(interp, frames, ts, gts, ps_float, card: str):
 SHARED = ["cuda:0", "cuda:0"]
 # launches per 4K ×8 pair: mode t on 2 shards synthesises 8 t slots (7
 # padded to a multiple of 2): gather 2 z + 4 per slot, splat 10 feature + 2
-# per slot, conv3x3 5 and pack_s2d4 1 per slot, and each slot's plain rows
-# through the interleave; mode sp on 2 slabs: splat 10 feature + 2 per t and
-# slab, gather 2 im_tot per t and slab (the strict z maps and the pack's
-# flowbacks launch none), conv3x3 5 per t and slab, and no pack_s2d4 (the
-# slabs build their UNet input in plain PyTorch, parallel/spatial.py)
+# per slot, conv3x3 5 and pack_s2d4 1 per slot, each slot's plain rows
+# through the interleave, and resize 17 for the flow and its extras + 2 per
+# slot; mode sp on 2 slabs: splat 10 feature + 2 per t and slab, gather 2
+# im_tot per t and slab (the strict z maps and the pack's flowbacks launch
+# none), conv3x3 5 per t and slab, no pack_s2d4 (the slabs build their UNet
+# input in plain PyTorch, parallel/spatial.py), and resize 12 for the flow
+# (pyramid 5, levels 5, the full-res flows 2) + 2 flowbacks per t
 PER_PAIR_T = {"gather": 34, "splat": 26, "conv3x3": 40, "interleave": 8,
-              "pack_s2d4": 8}
-PER_PAIR_SP = {"gather": 28, "splat": 38, "conv3x3": 70, "pack_s2d4": 0}
+              "pack_s2d4": 8, "resize": 33}
+PER_PAIR_SP = {"gather": 28, "splat": 38, "conv3x3": 70, "pack_s2d4": 0,
+               "resize": 26}
 # fldrx's bulk criteria for the sharded fast path against the unsharded
 # one (tests/test_parallel.py:92-101). On the card the splat's atomic adds
 # vary a 4K ×8 output's last bits from run to run, and a few pixels cross
@@ -2461,6 +2564,7 @@ def main() -> int:
     phase("2 interleave", check_interleave, "cuda", peaks, results)
     phase("2 deinterleave", check_deinterleave, "cuda", peaks, results)
     phase("2 pack_s2d4", check_pack_s2d4, "cuda", peaks, results)
+    phase("2 resize", check_resize, "cuda", peaks, results)
     phase("3 inference held", main_path_held)
     seen = phase("4 inference 4K", main_path_4k, card)
     phase("5a train step held", train_step_held)

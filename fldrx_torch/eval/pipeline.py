@@ -74,8 +74,13 @@ class Interpolator:
         return frames.to(self.device)
 
     def _prepare(self, frames: torch.Tensor) -> torch.Tensor:
+        """Normalised, padded frames, dense NHWC: padding can leave them
+        channel-planar (F.pad on the card does), and the pyramid's resizes
+        and the synthesis's kernels read dense frames best, so one copy a
+        pair here spares a strided read or a copy in each of them."""
         frames = to_model_frames(frames)
-        return pad_frames(frames, self.cfg.div_pad, self.cfg.padding)
+        return pad_frames(frames, self.cfg.div_pad,
+                          self.cfg.padding).contiguous()
 
     def __call__(self, frames, t) -> torch.Tensor:
         """Interpolate: returns [B, H, W, 3] at time(s) t [B, 1]."""
@@ -109,11 +114,6 @@ class Interpolator:
                                     self._compute_dtype)
                 with trace.span("extras"):
                     extras = flow_extras(self.params, self.cfg, flow, padded)
-                # padding can leave the frames channel-planar (F.pad on
-                # the card does); the synthesis's kernels read dense NHWC
-                # frames, so one copy a pair here spares one in each of
-                # them, a t
-                padded = padded.contiguous()
         return flow, padded, extras
 
     def synthesize_at(self, flow, padded_frames, t, orig_hw: Tuple[int, int],

@@ -10,14 +10,17 @@ bf16 tensor-core flops over the tensor-core rate, and its other flops
 (float32 matmuls and convolutions with TF32 off, elementwise arithmetic)
 over the float32 rate; each input counts as read once and each output as
 written once. A matmul or convolution counts 2·M·N·K flops as the port
-issues it (dense resize matrices, the UNet's packed convolutions with
-their structural zeros), as torch.utils.flop_counter.FlopCounterMode
-counts them.
+issues it on the card (the UNet's packed convolutions with their
+structural zeros), as torch.utils.flop_counter.FlopCounterMode counts
+them; a resize counts its taps, as csrc/resize.cu runs it on the card
+(`resize_taps`). The CPU's dense form of the resizes, two einsums against
+[out, in] matrices, is counted apart by `cpu_resize_flops`.
 
 (a) Per kernel: `gather`, `splat`, `gather_grad`, `splat_grad`,
-`conv3x3`, `correlation`, `interleave`, `deinterleave` and `pack_s2d4`
-give (bytes, flops, the rate's index in PEAKS) for a kernel's shapes;
-`kernel_bound` turns them into chip_smoke.py phase 2's bound.
+`conv3x3`, `correlation`, `interleave`, `deinterleave`, `pack_s2d4` and
+`resize_taps` give (bytes, flops, the rate's index in PEAKS) for a
+kernel's shapes; `kernel_bound` turns them into chip_smoke.py phase 2's
+bound.
 
 (b) Per stage: `stages(H, W)` for a frame of H×W padded as the deploy
 mix pads it (bench_inputs.deploy_config: papermodel_test5, S_tst = 5,
@@ -125,6 +128,19 @@ def pack_s2d4(B: int, H: int, W: int, C: int, out_bytes: int):
     return (F4 + out_bytes) * B * H * W * C, 0, F32
 
 
+def resize_taps(N: int, H: int, W: int, C: int, OH: int, OW: int,
+                taps: int):
+    """The tap kernel's resize of N·C float32 planes H×W to OH×OW, `taps`
+    a row and a column (4 bicubic, 2 bilinear, 1 nearest): the input rows
+    and columns that some tap reads (all of them, but for a downscale by
+    more than the taps), the output written, the two tap tables; 2 flops a
+    tap, rows first over the whole input width, then columns."""
+    rows, cols = min(H, OH * taps), min(W, OW * taps)
+    flops = 0 if (OH, OW) == (H, W) else 2.0 * taps * N * C * OH * (W + OW)
+    return (F4 * N * C * (rows * cols + OH * OW) + 8 * taps * (OH + OW),
+            flops, F32)
+
+
 def kernel_bound(peaks, work) -> Tuple[float, str]:
     """A kernel's bound (ms, by) from one of the functions above."""
     nbytes, flops, rate = work
@@ -166,19 +182,19 @@ class Work:
         return times[by] * 1e3, by
 
 
-def resize_flops(n: int, h: int, w: int, c: int, oh: int, ow: int) -> float:
-    """resize_2d of [n, h, w, c] to (oh, ow): two dense float32 einsums,
-    rows then columns (none where the size is unchanged)."""
+def resize(n: int, h: int, w: int, c: int, oh: int, ow: int,
+           taps: int) -> Work:
+    """A float32 resize as the card runs it (`resize_taps`)."""
+    return _kernel(resize_taps(n, h, w, c, oh, ow, taps))
+
+
+def dense_resize_flops(n: int, h: int, w: int, c: int, oh: int,
+                       ow: int) -> float:
+    """resize_2d's CPU form of [n, h, w, c] to (oh, ow): two dense float32
+    einsums, rows then columns (none where the size is unchanged)."""
     if (oh, ow) == (h, w):
         return 0.0
     return 2.0 * n * c * (oh * h * w + oh * ow * w)
-
-
-def resize(n: int, h: int, w: int, c: int, oh: int, ow: int) -> Work:
-    """A float32 resize as a function: the input, both matrices, the
-    output."""
-    return Work(F4 * (n * c * (h * w + oh * ow) + oh * h + ow * w),
-                mm=resize_flops(n, h, w, c, oh, ow))
 
 
 def conv_flops(h: int, w: int, cin: int, cout: int, k: int = 3) -> float:
@@ -217,12 +233,8 @@ def unet_convs(H: int, W: int):
 
 def pyramid(H: int, W: int) -> Work:
     """build_pyramid: levels 1..5 by bicubic resizes of both frames from
-    full resolution."""
-    flops = sum(resize_flops(2, H, W, 3, H >> i, W >> i)
-                for i in range(1, LEVELS))
-    outs = sum(2 * 3 * (H >> i) * (W >> i) for i in range(1, LEVELS))
-    mats = sum((H >> i) * H + (W >> i) * W for i in range(1, LEVELS))
-    return Work(F4 * (2 * 3 * H * W + outs + mats), mm=flops)
+    full resolution, each its own launch and so its own read."""
+    return sum((resize(*r) for r in resizes("pyramid", H, W)), Work())
 
 
 def _grid(H: int, W: int, level: int) -> Tuple[int, int]:
@@ -257,11 +269,11 @@ def levels(H: int, W: int) -> Work:
             w = w + Work(mm=sum(conv_flops(hb, wb, a, b)
                                 for a, b in FLOW_BOTTOM))
             continue
-        ph, pw = _grid(H, W, i + 1)
-        w = w + Work(mm=resize_flops(1, ph, pw, 4, hb, wb)
-                     + 2 * conv_flops(hb, wb, *CONV_FLOW1)
+        w = w + Work(mm=2 * conv_flops(hb, wb, *CONV_FLOW1)
                      + sum(conv_flops(hb, wb, a, b) for a, b in CONV_FLOW2))
         w = w + _kernel(splat(1, hb, wb, NF + 1)).flops_only() * 2
+    w = w + sum((resize(*r).flops_only() for r in resizes("levels", H, W)),
+                Work())
     feats = sum(FEAT * _grid(H, W, i)[0] * _grid(H, W, i)[1]
                 for i in range(LEVELS))
     weights = (sum(a * b for a, b in FLOW_BOTTOM + CONV_FLOW2)
@@ -277,21 +289,18 @@ def z(H: int, W: int) -> Work:
     h0, w0 = _grid(H, W, 0)
     Hh, Wh = H // 2, W // 2
     n = Hh * Wh
-    mm = (resize_flops(2, H, W, 3, Hh, Wh)
-          + 2 * resize_flops(1, h0, w0, 2, Hh, Wh)
-          + 2 * resize_flops(1, Hh, Wh, 1, H, W))
-    other = 2 * _kernel(gather(1, Hh, Wh, 3)).other + 2 * 7.0 * n
-    return Work(F4 * (2 * 3 * H * W + 4 * h0 * w0 + 2 * H * W), mm=mm,
-                other=other)
+    taps = sum(resize(*r).other for r in resizes("z", H, W))
+    other = taps + 2 * _kernel(gather(1, Hh, Wh, 3)).other + 2 * 7.0 * n
+    return Work(F4 * (2 * 3 * H * W + 4 * h0 * w0 + 2 * H * W), other=other)
 
 
 def pack(H: int, W: int) -> Work:
     """flow_extras' full-resolution flows (its `pack` span): flow_10 and
     flow_01 upsampled from the flow grid and scaled."""
     h0, w0 = _grid(H, W, 0)
-    mm = 2 * resize_flops(1, h0, w0, 2, H, W)
-    return Work(F4 * (4 * h0 * w0 + 2 * 2 * H * W), mm=mm,
-                other=2 * 2.0 * H * W)
+    taps = sum(resize(*r).other for r in resizes("pack", H, W))
+    return Work(F4 * (4 * h0 * w0 + 2 * 2 * H * W),
+                other=taps + 2 * 2.0 * H * W)
 
 
 def synth_splat(H: int, W: int) -> Work:
@@ -303,7 +312,8 @@ def flowback(H: int, W: int) -> Work:
     """One t's two flowback gathers at the flow grid (2 channels, no mask)
     and their bilinear upsamples to H×W."""
     h0, w0 = _grid(H, W, 0)
-    return (_kernel(gather(1, h0, w0, 2)) + resize(1, h0, w0, 2, H, W)) * 2
+    return (_kernel(gather(1, h0, w0, 2)) * 2
+            + sum((resize(*r) for r in resizes("flowback", H, W)), Work()))
 
 
 def synth_gather(H: int, W: int) -> Work:
@@ -348,6 +358,32 @@ def blend(H: int, W: int) -> Work:
 def synth_interleave(H: int, W: int) -> Work:
     """One t's u-planes to rows: 3 float32 channels."""
     return _kernel(interleave(1, H, W * 3))
+
+
+def resizes(stage: str, H: int, W: int):
+    """The resizes a stage runs on an H×W frame, as (n, h, w, c, oh, ow,
+    taps): the pyramid's five bicubic levels of both frames; the levels'
+    bilinear flow upsamples (their `levels` span); z's frames and flows to
+    half resolution and its two maps back (both bilinear); the pack's two
+    flow fields and one t's two flowbacks, bilinear from the flow grid."""
+    h0, w0 = _grid(H, W, 0)
+    Hh, Wh = H // 2, W // 2
+    return {
+        "pyramid": [(2, H, W, 3, H >> i, W >> i, 4)
+                    for i in range(1, LEVELS)],
+        "levels": [(1, *_grid(H, W, i + 1), 4, *_grid(H, W, i), 2)
+                   for i in range(LEVELS - 2, -1, -1)],
+        "z": [(2, H, W, 3, Hh, Wh, 2)] + [(1, h0, w0, 2, Hh, Wh, 2)] * 2
+        + [(1, Hh, Wh, 1, H, W, 2)] * 2,
+        "pack": [(1, h0, w0, 2, H, W, 2)] * 2,
+        "flowback": [(1, h0, w0, 2, H, W, 2)] * 2,
+    }[stage]
+
+
+def cpu_resize_flops(stage: str, H: int, W: int) -> float:
+    """The dense float32 einsum flops of a stage's resizes in their CPU
+    form (`resize_2d` on a CPU tensor), as FlopCounterMode counts them."""
+    return sum(dense_resize_flops(*r[:6]) for r in resizes(stage, H, W))
 
 
 FLOW_STAGES = {"pyramid": pyramid, "features": features, "levels": levels,

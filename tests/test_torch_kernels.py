@@ -14,7 +14,9 @@ channels and the atomicAdd accumulations (splat, gather_grad's dimg)
 change order, so those are held at 1e-4·(1 + |ref|); the correlation
 kernel sums its C products in channel order within each channel group and
 adds the groups in a fixed order, where torch.mean does not, held at
-1e-5·(1 + |ref|); the interleave, the deinterleave and pack_s2d4 move
+1e-5·(1 + |ref|); the resize sums its taps in the order and with the
+roundings of its plain version (bit for bit) and is held within 2e-6·max|x|
+of the dense form; the interleave, the deinterleave and pack_s2d4 move
 values (pack_s2d4 rounds each once, as `.to` does), held bit for bit; conv3x3 rounds its
 output to bf16 (one ulp is 1/128 relative), held at 2e-2 max abs and 1e-2
 relative L2 against float32 F.conv2d.
@@ -31,7 +33,8 @@ import numpy as np
 import pytest
 import torch
 
-from fldrx_torch.ops import _build, correlation, fastconv, fastwarp, repack
+from fldrx_torch.ops import (_build, correlation, fastconv, fastwarp, repack,
+                             resize)
 from fldrx_torch.ops import warp as twarp
 
 torch.set_num_threads(1)
@@ -65,6 +68,12 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         "fldrx_extract_planes": [_P] * 2 + [_I] * 3 + [_P],
         # ptrs, strides, chans, n, out, B, H, W, out_bf16, stream
         "fldrx_pack_s2d4": [_P] * 3 + [_I, _P] + [_I] * 4 + [_P],
+    }),
+    ("resize", {
+        # x, strides, N, H, W, C, iy, wy, ky, ix, wx, kx, OH, OW, tw, spans,
+        # smem_floats, out, stream
+        "fldrx_resize_taps_f32": [_P] * 2 + [_I] * 4 + [_P] * 2 + [_I]
+        + [_P] * 2 + [_I] * 4 + [_P, _I, _P, _P],
     }),
     ("decoder", {
         # path, w, h
@@ -625,3 +634,121 @@ def test_pack_s2d4_launches_once_a_t(card):
     torch.cuda.synchronize()
     assert len(out) == 4
     assert repack.LAUNCHES["pack_s2d4"] == before + 4
+
+
+# the main path's resizes at 4K (the padded 2304×4096 frame): the pyramid's
+# five bicubic levels of both frames, flow_extras' frames, flows and z maps,
+# a flowback's ×8 upsample, a level's flow upsample; then small shapes:
+# align_corners, one axis unchanged, batch dims, an exact sample's taps
+# inside its neighbours'
+RESIZE_CASES = [
+    ((2, 2304, 4096, 3), (1152, 2048), "bicubic", False),
+    ((2, 2304, 4096, 3), (72, 128), "bicubic", False),
+    ((2, 2304, 4096, 3), (1152, 2048), "bilinear", False),
+    ((1, 288, 512, 2), (2304, 4096), "bilinear", False),
+    ((1, 288, 512, 2), (1152, 2048), "bilinear", False),
+    ((1, 1152, 2048, 1), (2304, 4096), "bilinear", False),
+    ((1, 144, 256, 4), (288, 512), "bilinear", False),
+    ((2, 3, 37, 50, 4), (13, 29), "bicubic", True),
+    ((8, 12, 3), (64, 96), "bicubic", True),
+    ((2, 24, 40, 2), (24, 13), "bilinear", False),
+    ((1, 21, 17, 2), (50, 41), "nearest", False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dst,mode,align_corners", RESIZE_CASES)
+def test_resize_kernel_matches_plain_and_dense(card, shape, dst, mode,
+                                               align_corners):
+    """The tap kernel bit for bit against its plain version and within
+    2e-6·max|x| of the dense form; one launch, a fresh row-major
+    output."""
+    g = torch.Generator().manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g) * 4).to(card)
+    before = resize.LAUNCHES["resize"]
+    with torch.inference_mode():
+        got = resize.resize_2d(x, dst, mode, align_corners)
+    assert resize.LAUNCHES["resize"] == before + 1
+    plain = resize.resize_taps_plain(x, dst, mode, align_corners)
+    dense = resize._resize_dense(x, *dst, mode, align_corners)
+    torch.cuda.synchronize()
+    assert got.shape == (*shape[:-3], *dst, shape[-1])
+    assert got.is_contiguous()
+    assert torch.equal(got, plain)
+    assert (got - dense).abs().max() <= 2e-6 * x.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["channel slice", "W-major", "planar",
+                                    "offset"])
+def test_resize_kernel_reads_strided_inputs(card, layout):
+    """Non-dense inputs are read in place at their strides: a channel
+    slice of a flow field, a W-major field, channel-planar frames, a view
+    one float into its storage."""
+    g = torch.Generator().manual_seed(9)
+    B, H, W = 2, 36, 64
+    if layout == "channel slice":
+        x = torch.randn(B, H, W, 4, generator=g).to(card)[..., 2:4]
+    elif layout == "W-major":
+        x = torch.randn(B, W, H, 2, generator=g).to(card).transpose(1, 2)
+    elif layout == "planar":
+        x = torch.randn(B, 3, H, W, generator=g).to(card).permute(0, 2, 3, 1)
+    else:
+        x = _at_offset((B, H, W, 3), 1, g, card)
+    for dst, mode in (((288, 512), "bilinear"), ((18, 16), "bicubic")):
+        with torch.inference_mode():
+            got = resize.resize_2d(x, dst, mode)
+        want = resize.resize_taps_plain(x.contiguous(), dst, mode)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_resize_in_grad_mode_stays_dense(card):
+    """With grad mode on a CUDA tensor takes the dense form, whether it
+    requires grad (a gradient) or not, and launches nothing; with grad
+    mode off the kernel, which refuses more than 4 channels."""
+    x = torch.randn(1, 18, 32, 2, device=card, requires_grad=True)
+    before = resize.LAUNCHES["resize"]
+    y = resize.resize_2d(x, (144, 256), "bilinear")
+    y.sum().backward()
+    assert y.grad_fn is not None and x.grad is not None
+    z = resize.resize_2d(x.detach(), (144, 256), "bilinear")
+    assert torch.equal(z, resize._resize_dense(x.detach(), 144, 256,
+                                               "bilinear", False))
+    assert resize.LAUNCHES["resize"] == before
+    with torch.no_grad():
+        resize.resize_2d(x, (144, 256), "bilinear")
+        with pytest.raises(ValueError, match="1 to 4"):
+            resize.resize_2d(torch.zeros(1, 8, 8, 5, device=card), (4, 4))
+    assert resize.LAUNCHES["resize"] == before + 1
+
+
+@pytest.mark.cuda
+def test_resize_launches_a_4k_pair(card, monkeypatch):
+    """One precompute_flow and a 4-t synthesize_multi_at at 4K launch the
+    resize exactly 5 (pyramid) + 5 (the levels' flow upsamples) + 7
+    (extras) + 2 a t (the flowbacks) times; in the synthesis the warps'
+    coordinates, made from the resizes' row-major flows, need no copy."""
+    from fldrx_torch.api import prepare_model
+    from fldrx_torch.bench_inputs import bench_frames, deploy_config
+
+    copied = []
+    f32 = fastwarp._f32
+
+    def recording(t, name):
+        if not t.is_contiguous():
+            copied.append(name)
+        return f32(t, name)
+
+    monkeypatch.setattr(fastwarp, "_f32", recording)
+    interp = prepare_model(cfg=deploy_config(), device=card)[0]
+    frames = bench_frames(2160, 4096)
+    before = resize.LAUNCHES["resize"]
+    flow, padded, extras = interp.precompute_flow(frames)
+    del copied[:]
+    interp.synthesize_multi_at(flow, padded, [0.2, 0.4, 0.6, 0.8],
+                               (2160, 4096), extras)
+    torch.cuda.synchronize()
+    assert resize.LAUNCHES["resize"] == before + 5 + 5 + 7 + 2 * 4
+    assert copied == []

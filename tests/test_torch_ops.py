@@ -77,6 +77,115 @@ def test_resize_matches_fldrx(mode, src, dst):
     _close(tresize.resize_2d(torch.as_tensor(x), dst, mode), ref)
 
 
+# the tap form (csrc/resize.cu and its plain version): downscales by 2 to
+# 32, upscales by 2 to 8, odd sizes, one axis unchanged, clamped edges
+TAP_SIZES = [((64, 128), (32, 64)), ((96, 80), (24, 20)),
+             ((128, 64), (16, 8)), ((64, 96), (4, 6)), ((128, 256), (4, 8)),
+             ((10, 14), (20, 28)), ((9, 11), (36, 44)), ((8, 12), (64, 96)),
+             ((37, 50), (13, 29)), ((21, 17), (50, 41)),
+             ((24, 40), (24, 13)), ((24, 40), (70, 40)), ((3, 5), (17, 2))]
+TAP_MODES = [("bicubic", 4), ("bilinear", 2), ("nearest", 1)]
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("mode,most", TAP_MODES)
+@pytest.mark.parametrize("src,dst", TAP_SIZES)
+def test_resize_tap_tables_are_the_dense_nonzeros(src, dst, mode, most,
+                                                  align_corners):
+    """Each axis's tap table holds its dense matrix's nonzeros, ascending,
+    at most 4, 2 and 1 a row, padded with weight 0; rebuilt as a dense
+    matrix it equals the float32 matrix the dense form multiplies by."""
+    for n, m in zip(src, dst):
+        idx, w = tresize._taps_np(n, m, mode, align_corners)
+        M = tresize._resize_matrix_np(n, m, mode,
+                                      align_corners).astype(np.float32)
+        assert idx.dtype == np.int32 and w.dtype == np.float32
+        assert idx.shape == w.shape and idx.shape[0] == m
+        assert idx.shape[1] <= (1 if n == m else most)
+        assert (np.diff(idx, axis=1) >= 0).all()
+        assert ((idx >= 0) & (idx < n)).all()
+        nz = (M != 0).sum(1)
+        assert (nz <= most).all()
+        assert ((w != 0).sum(1) == nz).all()
+        dense = np.zeros_like(M)
+        np.add.at(dense, (np.arange(m)[:, None], idx), w)
+        np.testing.assert_array_equal(dense, M)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("mode", [m for m, _ in TAP_MODES])
+@pytest.mark.parametrize("src,dst", TAP_SIZES)
+def test_resize_taps_plain_matches_the_dense_form(src, dst, mode,
+                                                  align_corners):
+    """The kernel's arithmetic in PyTorch against the dense form within
+    2e-6·max|x|, at C = 1 to 4 and with leading batch dims."""
+    g = torch.Generator().manual_seed(src[0] * 97 + dst[1])
+    for C, lead in ((1, (2,)), (2, (1,)), (3, (2, 2)), (4, ())):
+        x = torch.randn(*lead, *src, C, generator=g) * 3
+        got = tresize.resize_taps_plain(x, dst, mode, align_corners)
+        ref = tresize.resize_2d(x, dst, mode, align_corners)
+        assert got.shape == ref.shape == (*lead, *dst, C)
+        assert (got - ref).abs().max() <= 2e-6 * x.abs().max()
+
+
+def test_resize_cpu_is_the_dense_form_bit_for_bit():
+    """On the CPU resize_2d is the two dense einsums, unchanged, and
+    launches nothing; identity sizes return the input."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 2, 40, 56, 3, generator=g)
+    before = dict(tresize.LAUNCHES)
+    for mode, dst, ac in (("bicubic", (20, 28), False),
+                          ("bilinear", (80, 112), True),
+                          ("nearest", (13, 56), False)):
+        Wh = torch.as_tensor(tresize._resize_matrix_np(
+            40, dst[0], mode, ac).astype(np.float32))
+        Ww = torch.as_tensor(tresize._resize_matrix_np(
+            56, dst[1], mode, ac).astype(np.float32))
+        y = torch.einsum("oh,...hwc->...owc", Wh, x)
+        want = torch.einsum("pw,...owc->...opc", Ww, y)
+        assert torch.equal(tresize.resize_2d(x, dst, mode, ac), want)
+    assert tresize.resize_2d(x, (40, 56)) is x
+    assert tresize.resize_taps_plain(x, (40, 56)) is x
+    assert tresize.LAUNCHES == before
+
+
+class _Stand:
+    """What the dispatch rule reads of a tensor."""
+
+    def __init__(self, is_cuda, requires_grad):
+        self.is_cuda, self.requires_grad = is_cuda, requires_grad
+
+
+@pytest.mark.parametrize("is_cuda,requires_grad,grad_mode,kernel", [
+    (False, False, "grad", False),      # a CPU tensor: dense
+    (False, True, "no_grad", False),
+    (True, True, "grad", False),        # recorded by autograd: dense
+    (True, False, "grad", False),       # a training step's other resizes
+    (True, True, "no_grad", True),      # grad mode off
+    (True, True, "inference", True),
+    (True, False, "inference", True),
+])
+def test_resize_dispatch_rule(is_cuda, requires_grad, grad_mode, kernel):
+    """The tap kernel takes a CUDA tensor while grad mode is off; every
+    other tensor the dense form."""
+    modes = {"grad": torch.enable_grad, "no_grad": torch.no_grad,
+             "inference": torch.inference_mode}
+    with modes[grad_mode]():
+        assert tresize._takes_kernel(_Stand(is_cuda, requires_grad)) is kernel
+
+
+def test_resize_recorded_by_autograd_takes_the_dense_form():
+    """A tensor that requires grad gets the dense form's gradient and
+    launches nothing."""
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(1, 12, 20, 2, generator=g, requires_grad=True)
+    before = dict(tresize.LAUNCHES)
+    y = tresize.resize_2d(x, (24, 40), "bilinear")
+    y.sum().backward()
+    assert y.grad_fn is not None and x.grad is not None
+    assert tresize.LAUNCHES == before
+
+
 # -- warps --------------------------------------------------------------------
 
 @pytest.fixture(scope="module")

@@ -49,6 +49,9 @@ TABLE = [
     (R.interleave, (1, 2304, 12288), "0.068", "bytes"),
     (R.deinterleave, (1, 2304, 12288), "0.068", "bytes"),
     (R.pack_s2d4, (1, 2304, 4096, 26, 2), "0.439", "bytes"),
+    (R.resize_taps, (2, 2304, 4096, 3, 1152, 2048, 4), "0.0845", "bytes"),
+    (R.resize_taps, (1, 288, 512, 2, 2304, 4096, 2), "0.0229", "bytes"),
+    (R.resize_taps, (1, 1152, 2048, 1, 2304, 4096, 2), "0.0141", "bytes"),
     (R.correlation, (8, 128, 128, 32), "0.0227", "bytes"),
     (R.correlation, (8, 64, 64, 64), "0.0082", "bytes"),
     (R.correlation, (8, 32, 32, 96), "0.0027", "bytes"),
@@ -95,7 +98,8 @@ def _interp(hw):
 def test_pyramid_flops_equal_the_flop_counter(hw):
     frames = torch.rand(1, 2, *hw, 3)
     got = _flops(lambda: pipeline.build_pyramid(frames, deploy_config(), 6))
-    assert got == R.pyramid(*hw).mm > 0
+    assert got == R.cpu_resize_flops("pyramid", *hw) > 0
+    assert R.pyramid(*hw).mm == 0
 
 
 def test_flow_flops_equal_the_flop_counter():
@@ -109,7 +113,8 @@ def test_flow_flops_equal_the_flop_counter():
                                  interp.cfg, 6)
     got = _flops(lambda: fldrnet.forward_flow(interp.params, interp.cfg, pyr))
     want = R.features(H, W) + R.levels(H, W)
-    assert want.tc == 0 and got == want.mm
+    assert want.tc == 0
+    assert got == want.mm + R.cpu_resize_flops("levels", H, W)
 
 
 def test_flow_extras_flops_equal_the_flop_counter():
@@ -122,7 +127,9 @@ def test_flow_extras_flops_equal_the_flop_counter():
     images = torch.rand(1, 2, H, W, 3, generator=g) * 2 - 1
     got = _flops(lambda: fldrnet.flow_extras(interp.params, interp.cfg, flow,
                                              images))
-    assert got == R.z(H, W).mm + R.pack(H, W).mm
+    assert got == (R.cpu_resize_flops("z", H, W)
+                   + R.cpu_resize_flops("pack", H, W))
+    assert R.z(H, W).mm == R.pack(H, W).mm == 0
 
 
 @pytest.mark.parametrize("hw", [(64, 96), (128, 64)])
@@ -143,7 +150,8 @@ def test_flowback_resizes_equal_the_flop_counter():
     H, W = 256, 384
     fb = torch.rand(1, H // 8, W // 8, 2)
     got = _flops(lambda: fldrnet.resize_2d(fb, (H, W), "bilinear"))
-    assert 2 * got == R.flowback(H, W).mm
+    assert 2 * got == R.cpu_resize_flops("flowback", H, W)
+    assert R.flowback(H, W).mm == 0
 
 
 def _main(argv) -> str:

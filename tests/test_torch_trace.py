@@ -18,7 +18,8 @@ import torch
 from fldrx_torch.api import prepare_model
 from fldrx_torch.bench_inputs import train_batch
 from fldrx_torch.config import papermodel, papermodel_test5
-from fldrx_torch.ops import _build, correlation, fastconv, fastwarp, repack
+from fldrx_torch.ops import (_build, correlation, fastconv, fastwarp, repack,
+                             resize)
 from fldrx_torch.tools import profile_pair
 from fldrx_torch.train.trainer import TrainState, make_train_step
 from fldrx_torch.utils import trace
@@ -182,7 +183,8 @@ def test_counters_are_the_launch_deltas():
     assert snap["synth"]["by_request"][req]["launches"] == 4
     assert trace.RECORDER.groups == {
         "fastwarp": fastwarp.LAUNCHES, "fastconv": fastconv.LAUNCHES,
-        "correlation": correlation.LAUNCHES, "repack": repack.LAUNCHES}
+        "correlation": correlation.LAUNCHES, "repack": repack.LAUNCHES,
+        "resize": resize.LAUNCHES}
 
 
 def test_the_store_is_bounded(monkeypatch):
