@@ -42,10 +42,9 @@ script exits non-zero:
      five cost volumes (CORR_ROWS: dec2 8×128×128 C=32 to dec6 8×8×8
      C=196; the bare launch also timed on the device alone, queued behind
      a sleep, and its kernels' registers and spills printed); the
-     interleave of the synthesis's u-planes (1×4×576×12288 f32, the
-     padded 4K frame), the
-     deinterleave, which no path launches (1×2304×12288 f32, bit for bit
-     and through the round trip), and pack_s2d4, the refine UNet's input
+     interleave of u-planes (1×4×576×12288 f32, the padded 4K frame) and
+     the deinterleave (1×2304×12288 f32, bit for bit and through the round
+     trip), which no path launches, and pack_s2d4, the refine UNet's input
      from its ten sources at the padded 4K frame (26 channels, x0 and x1
      batch-strided views, the flow fields W-major) in bfloat16 and in
      float32, bit for bit, timed also as the plain concatenation, cast and
@@ -53,7 +52,11 @@ script exits non-zero:
      resizes (RESIZE_ROWS: the pyramid's level 1 of both frames, a flow ×8
      upsample from a channel slice, a z map ×2 up), bit for bit against its
      plain version and within 2e-6·max|x| of the dense form, timed also as
-     the dense form and F.interpolate. Each against its plain version on the
+     the dense form and F.interpolate; and the six-way blend (blend6) at
+     one t of the padded 4K frame, bf16 logits into plain rows, within
+     1e-6 max abs of its plain version (the u-plane blend and the
+     interleave it replaced), timed also on the device alone and as the
+     plain version. Each against its plain version on the
      same inputs (the gather within 1e-5, splat_grad's dvals bit for bit,
      the splat and the other VJP outputs within 1e-4·(1+|ref|), the
      correlation within 1e-5·(1+|ref|)), with the
@@ -73,8 +76,8 @@ script exits non-zero:
      outputs finite and in [-1.1, 1.1];
      frames/s and peak memory. Kernel launch counts are zeroed just before
      the timed pairs and read after; each pair must launch exactly gather
-     30, splat 24, conv3x3 35, pack_s2d4 7 and resize 31 times
-     (PER_PAIR).
+     30, splat 24, conv3x3 35, pack_s2d4 7, resize 31 and blend6 7 times,
+     and the interleave never (PER_PAIR).
   5a. train step held: the real checkpoint on cuda and on cpu, one
      make_train_step each on the same batch (B=2, 256×256, S_trn=3, bench
      texture with a per-sample pan, t from a seeded torch.Generator);
@@ -87,8 +90,8 @@ script exits non-zero:
      steps fenced by torch.cuda.synchronize(); losses finite; ms per step,
      samples/s, peak memory and kernel launches per step (counts zeroed
      just before the timed steps; exactly gather 24, splat 16,
-     gather_grad 24 and splat_grad 16 per step and no pack_s2d4 or
-     resize, PER_STEP, and the VJP
+     gather_grad 24 and splat_grad 16 per step and no pack_s2d4, resize
+     or blend6, PER_STEP, and the VJP
      launches per form, FORMS_PER_STEP); then a SaveManager save into a
      temporary directory and a load that must restore the parameters and
      the optimiser state exactly. The card machine has no PIL and no JAX,
@@ -114,7 +117,7 @@ script exits non-zero:
      two of the 4K predictions against the host's psnr and ssim_bgr: ≤ 1e-4
      dB and ≤ 1e-5 SSIM; (d) evaluate() on the same 4K clip as an 8-bit test
      set (GoldenTestSet), the deploy mix, once with the metrics on the card
-     (plain rows through the interleave kernel; launch counts zeroed just
+     (plain rows written by the blend kernel; launch counts zeroed just
      before and read after, PER_PAIR) and once on the host (u-planes
      unpacked on the worker threads): the two agree to 1e-4 dB and 1e-5 SSIM,
      and the mean lies within 0.15 dB of 44.139 moved by the 8-bit rounding
@@ -188,7 +191,8 @@ script exits non-zero:
      North star bar); fast_warp float32 and the deploy mix on the card
      each within 0.5 dB PSNR of the same configuration on the CPU; the
      deploy run, its launches zeroed just before and read after, launches
-     gather, splat, conv3x3 and the interleave (its output in plain rows).
+     gather, splat, conv3x3, pack_s2d4 and blend6 once (its output in
+     plain rows), and the interleave never.
      One JSON line: max abs, mean abs and PSNR
      of each run, the oracle's and each run's seconds, the card line.
   11. `python -m fldrx_torch.bench` once, its JSON line; a JSON line for the
@@ -693,8 +697,9 @@ def warp_rows(peaks, kernels=WARP_KERNELS):
 
 
 def check_interleave(dev, peaks, results):
-    """Phase 2 at the shape the evaluator's device-metrics path gives the
-    interleave: the padded 4K frame's u-planes, 1×4×576×12288 f32."""
+    """Phase 2 for the interleave, which no path launches (the packed
+    synthesis's blend writes plain rows), at the padded 4K frame's
+    u-planes, 1×4×576×12288 f32."""
     import torch
 
     from fldrx_torch.ops import repack
@@ -885,6 +890,75 @@ def check_resize(dev, peaks, results):
               f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
               f"{r['bound_by']}; err {r['max_abs_err']:.3g}) at "
               f"{r['shape']}", flush=True)
+
+
+def check_blend6(dev, peaks, results):
+    """Phase 2 at the shape the 4K path gives the blend: one t of the
+    padded 4K frame, B = 1, 2304×4096, the UNet's bf16 s2d4 logits and the
+    six candidates (x0 and x1 batch-strided views of the frame pair) into
+    plain rows; within 1e-6 max abs of the plain version (the u-plane
+    blend and the interleave it replaced, run on the card), timed through
+    the wrapper, as the bare launch, on the device alone (`queued_ms`) and
+    as the plain version."""
+    import ctypes
+
+    import torch
+
+    from fldrx_torch.ops import blend
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, H, W = 1, 2304, 4096
+    logits = (torch.randn(B, H // 4, W // 4, 96, device=dev, generator=g)
+              * 4).to(torch.bfloat16)
+    images = torch.rand(B, 2, H, W, 3, device=dev, generator=g) * 2 - 1
+    cands = [torch.rand(B, H, W, 3, device=dev, generator=g) * 2 - 1
+             for _ in range(4)] + [images[:, 0], images[:, 1]]
+    tb = torch.full((B, 1, 1, 1), 0.375, device=dev)
+    T = torch.tensor([0.8], device=dev)
+    got = torch.empty(B, H, W, 3, device=dev)
+    want = torch.empty_like(got)
+    with torch.inference_mode():
+        blend.blend6_out(logits, cands, tb, T, got)
+    blend.blend6_plain(logits, cands, tb, T, want)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not err <= 1e-6:
+        raise AssertionError(f"blend6 against its plain version: max abs "
+                             f"{err}")
+    ptrs = (ctypes.c_void_p * 6)(*[c.data_ptr() for c in cands])
+    strides = (ctypes.c_longlong * 7)(*[c.stride(0) for c in cands],
+                                      got.stride(0))
+    bare = bare_launch("fldrx_blend6", logits, 1, ctypes.addressof(ptrs),
+                       ctypes.addressof(strides), tb, T, got, 0, B, H, W,
+                       lib="blend")
+    b, by = bound(peaks, "blend6", B, H, W, 2)
+
+    def wrapper():
+        with torch.inference_mode():
+            blend.blend6_out(logits, cands, tb, T, got)
+
+    results["blend6"] = dict(
+        name="blend6", route="cuda", source="fldrx_torch/csrc/blend.cu",
+        replaces="none: fldrx leaves its blend to XLA "
+                 "(fldrx/model/fldrnet.py blend_planes_24)",
+        library_call="none: no single PyTorch call does it",
+        tolerance="1e-6 max abs (expf, logf)", max_abs_err=err,
+        bit_exact=bool(torch.equal(got, want)),
+        ms=median_ms(wrapper), bare_ms=median_ms(bare),
+        queued_ms=queued_ms(bare),
+        plain_ms=median_ms(lambda: blend.blend6_plain(logits, cands, tb, T,
+                                                      want)),
+        bound_ms=b, bound_by=by,
+        shape=f"logits {B}x{H // 4}x{W // 4}x96 bf16, 6 candidates "
+              f"{B}x{H}x{W}x3 f32 -> rows {B}x{H}x{W}x3 f32")
+    del logits, images, cands, got, want, bare, ptrs, strides
+    torch.cuda.empty_cache()
+    r = results["blend6"]
+    print(f"kernel blend6: err {r['max_abs_err']:.3g} (bit for bit: "
+          f"{r['bit_exact']}), {r['ms']:.4f} ms / bare {r['bare_ms']:.4f} / "
+          f"device {r['queued_ms']:.4f} (plain {r['plain_ms']:.3f}, library: "
+          f"none, bound {r['bound_ms']:.4f} by {r['bound_by']}) at "
+          f"{r['shape']}", flush=True)
 
 
 # the packed refine UNet's conv3x3 calls on the 4K path (refine_unet_s2d_core
@@ -1147,16 +1221,16 @@ def correlation_rows(peaks):
 # ---------------------------------------------------------------------------
 
 # the kernels each path must launch
-INFER_KERNELS = ("gather", "splat", "conv3x3", "pack_s2d4")
+INFER_KERNELS = ("gather", "splat", "conv3x3", "pack_s2d4", "blend6")
 TRAIN_KERNELS = ("gather", "splat", "gather_grad", "splat_grad")
 TEACHER_KERNELS = ("correlation", "gather")
-EVAL_KERNELS = INFER_KERNELS + ("interleave",)
 
 
 def _counters():
-    from fldrx_torch.ops import correlation, fastconv, fastwarp, repack, resize
+    from fldrx_torch.ops import (blend, correlation, fastconv, fastwarp,
+                                 repack, resize)
     return (fastwarp.LAUNCHES, fastconv.LAUNCHES, correlation.LAUNCHES,
-            repack.LAUNCHES, resize.LAUNCHES)
+            repack.LAUNCHES, resize.LAUNCHES, blend.LAUNCHES)
 
 
 def launches():
@@ -1179,16 +1253,17 @@ def require_launched(seen, kernels, where):
 # t), pack_s2d4 7 (the UNet's input, one per t), resize 31 (the pyramid's
 # 5 levels, the 5 levels' flow upsamples, 7 in flow_extras: 2 full-res
 # flows, the frames, 2 flows to half size and 2 z maps back; 2 flowbacks
-# per t); per training step (S_trn = 3: synthesis at 4 levels): gather 24
-# (2 z, 2 flowback and 2 im_tot gathers per level) and splat 16 (2 softmax
-# splats per level, 2 feature splats at each of 3 levels, 2 in the endflow
-# loss), and one VJP launch for each; no pack_s2d4 (training never takes
-# the packed synthesis); no resize (a step runs in grad mode, where
-# resize_2d keeps the dense form)
+# per t), blend6 7 (one per t, into plain rows or u-planes alike) and no
+# interleave; per training step (S_trn = 3: synthesis at 4 levels): gather
+# 24 (2 z, 2 flowback and 2 im_tot gathers per level) and splat 16 (2
+# softmax splats per level, 2 feature splats at each of 3 levels, 2 in the
+# endflow loss), and one VJP launch for each; no pack_s2d4 or blend6
+# (training never takes the packed synthesis); no resize (a step runs in
+# grad mode, where resize_2d keeps the dense form)
 PER_PAIR = {"gather": 30, "splat": 24, "conv3x3": 35, "pack_s2d4": 7,
-            "resize": 31}
+            "resize": 31, "blend6": 7, "interleave": 0}
 PER_STEP = {"gather": 24, "splat": 16, "gather_grad": 24, "splat_grad": 16,
-            "pack_s2d4": 0, "resize": 0}
+            "pack_s2d4": 0, "resize": 0, "blend6": 0}
 # the VJP launches per step by form (fastwarp.FORMS): the z and im_tot
 # gathers warp data frames (coords only), the flowback gathers a flow (dimg
 # too); the softmax and endflow splats want dtx/dty, the feature splats'
@@ -1655,7 +1730,7 @@ def golden_evaluate(interp, frames, ts, gts, ps_float, card: str):
         "device_metrics_s": on_s, "host_metrics_s": off_s,
         "fps_device_metrics": on.frames_per_sec, "launches": seen,
         "card": card}), flush=True)
-    require_launched(seen, EVAL_KERNELS, "evaluate, metrics on the card")
+    require_launched(seen, INFER_KERNELS, "evaluate, metrics on the card")
     require_counts(seen, PER_PAIR, 1, "evaluate, metrics on the card")
     if not on.n_samples == off.n_samples == len(ts):
         raise AssertionError(f"evaluate scored {on.n_samples}, "
@@ -1680,17 +1755,18 @@ def golden_evaluate(interp, frames, ts, gts, ps_float, card: str):
 SHARED = ["cuda:0", "cuda:0"]
 # launches per 4K ×8 pair: mode t on 2 shards synthesises 8 t slots (7
 # padded to a multiple of 2): gather 2 z + 4 per slot, splat 10 feature + 2
-# per slot, conv3x3 5 and pack_s2d4 1 per slot, each slot's plain rows
-# through the interleave, and resize 17 for the flow and its extras + 2 per
-# slot; mode sp on 2 slabs: splat 10 feature + 2 per t and slab, gather 2
-# im_tot per t and slab (the strict z maps and the pack's flowbacks launch
-# none), conv3x3 5 per t and slab, no pack_s2d4 (the slabs build their UNet
-# input in plain PyTorch, parallel/spatial.py), and resize 12 for the flow
-# (pyramid 5, levels 5, the full-res flows 2) + 2 flowbacks per t
-PER_PAIR_T = {"gather": 34, "splat": 26, "conv3x3": 40, "interleave": 8,
-              "pack_s2d4": 8, "resize": 33}
+# per slot, conv3x3 5, pack_s2d4 1 and blend6 1 per slot (each slot's plain
+# rows written by the blend, no interleave), and resize 17 for the flow and
+# its extras + 2 per slot; mode sp on 2 slabs: splat 10 feature + 2 per t
+# and slab, gather 2 im_tot per t and slab (the strict z maps and the
+# pack's flowbacks launch none), conv3x3 5 per t and slab, no pack_s2d4 or
+# blend6 (the slabs build their UNet input and blend in plain PyTorch,
+# parallel/spatial.py), and resize 12 for the flow (pyramid 5, levels 5,
+# the full-res flows 2) + 2 flowbacks per t
+PER_PAIR_T = {"gather": 34, "splat": 26, "conv3x3": 40, "interleave": 0,
+              "pack_s2d4": 8, "resize": 33, "blend6": 8}
 PER_PAIR_SP = {"gather": 28, "splat": 38, "conv3x3": 70, "pack_s2d4": 0,
-               "resize": 26}
+               "resize": 26, "blend6": 0}
 # fldrx's bulk criteria for the sharded fast path against the unsharded
 # one (tests/test_parallel.py:92-101). On the card the splat's atomic adds
 # vary a 4K ×8 output's last bits from run to run, and a few pixels cross
@@ -2152,7 +2228,7 @@ def decoder_on_card(card: str, golden):
                              "array written")
     if lib is not None and rec["decoder"] != "native":
         raise AssertionError(f"decoder: built, but {rec['decoder']} ran")
-    require_launched(rec["launches"], EVAL_KERNELS, "evaluate on X-Test")
+    require_launched(rec["launches"], INFER_KERNELS, "evaluate on X-Test")
     require_counts(rec["launches"], PER_PAIR, 1, "evaluate on X-Test")
     if not (res.n_samples == len(ts) and ds.frames_decoded == 9):
         raise AssertionError(f"decoder: evaluate scored {res.n_samples} "
@@ -2467,7 +2543,8 @@ def oracle_on_card(card: str):
     the card within ORACLE_MAX_ABS max abs; fast_warp float32 and the
     deploy mix on the card each within ORACLE_DB of the same configuration
     on the CPU; the deploy run, counted alone, launches gather, splat,
-    conv3x3 and the interleave."""
+    conv3x3, pack_s2d4 and blend6 (once: one t), and the interleave
+    never."""
     import torch
 
     from fldrx_torch.bench_inputs import deploy_config
@@ -2509,9 +2586,11 @@ def oracle_on_card(card: str):
         if not abs(a - b) <= ORACLE_DB:
             raise AssertionError(f"{k} against the oracle: {a} dB on the "
                                  f"card, {b} dB on the CPU")
-    # the deploy run returns plain rows: its u-planes go through the
-    # interleave, as in the evaluator's device-metrics run
-    require_launched(seen, EVAL_KERNELS, "measurement 1, deploy")
+    # the deploy run returns plain rows, written by its one t's blend, as
+    # in the evaluator's device-metrics run
+    require_launched(seen, INFER_KERNELS, "measurement 1, deploy")
+    require_counts(seen, {"blend6": 1, "interleave": 0}, 1,
+                   "measurement 1, deploy")
     return seen
 
 
@@ -2565,6 +2644,7 @@ def main() -> int:
     phase("2 deinterleave", check_deinterleave, "cuda", peaks, results)
     phase("2 pack_s2d4", check_pack_s2d4, "cuda", peaks, results)
     phase("2 resize", check_resize, "cuda", peaks, results)
+    phase("2 blend6", check_blend6, "cuda", peaks, results)
     phase("3 inference held", main_path_held)
     seen = phase("4 inference 4K", main_path_4k, card)
     phase("5a train step held", train_step_held)
@@ -2587,17 +2667,17 @@ def main() -> int:
     seen_oracle = phase("10b parity measurement 1", oracle_on_card, card)
     bench_rec = phase("bench", bench_line)
     # launches: the count of the path the row is timed for (the 4K pairs
-    # for the forward kernels, the timed train steps for the VJP kernels,
-    # the timed teacher calls for the correlation, the evaluator's
-    # device-metrics run for the interleave; the deinterleave is on no
-    # path, and the 4K pairs show its 0); launches_train: over the 5 timed
+    # for the forward kernels and the blend, the timed train steps for the
+    # VJP kernels, the timed teacher calls for the correlation; the
+    # interleave and the deinterleave are on no path, and the 4K pairs show
+    # their 0); launches_train: over the 5 timed
     # train steps; launches_teacher: over the 5 timed teacher calls;
     # launches_eval: over that run; launches_t_parallel and launches_sp:
     # over phase 8a's and 8b's 2 timed pairs; launches_sp_train: per step
     # of one rank of 8e (every rank launches the same); launches_oracle:
     # over 10b's deploy run
     path_of = {"gather_grad": seen_train, "splat_grad": seen_train,
-               "correlation": seen_teacher, "interleave": seen_eval}
+               "correlation": seen_teacher}
     for k, r in results.items():
         r["launches"] = path_of.get(k, seen)[k]
         r["launches_train"] = seen_train[k]

@@ -13,7 +13,7 @@ the host from the fetched frames (ops/metrics.py) on a pool of worker
 threads while the card synthesises the next pair. The card path is taken
 by default, as in fldrx, when nothing else needs the frames on the host:
 no dump (`save_dir`) and no validation loss. The card path asks the
-synthesis for plain rows (the interleave kernel, ops/repack.py); the host
+synthesis for plain rows (written so by its blend, ops/blend.py); the host
 path fetches u-planes where cfg.planes_out and unpacks them on the worker
 threads. Test frames travel to the
 device as uint8 and are normalised there, except in validation, whose
@@ -229,7 +229,7 @@ def evaluate(interp: Interpolator, cfg: FLDRConfig, dataset_name: str,
             flow, padded, extras = interp.precompute_flow(inputs)
             flow_img = (flow_image(flow, padded, H, W)
                         if save_flow and save_dir else None)
-            # scored on the device: plain rows (the interleave kernel);
+            # scored on the device: plain rows (written by the blend);
             # fetched to the host: cfg.planes_out, unpacked on the workers
             starts = list(range(0, len(ts), tchunk))
             outs = [interp.synthesize_multi_at(

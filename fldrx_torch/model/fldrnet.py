@@ -22,8 +22,8 @@ the forward kernels directly and is inference only.
 
 The packed synthesis (`synthesize_packed_multi`) is a TPU layout in fldrx;
 here it computes the same values in plain NHWC up to the refine UNet, whose
-space-to-depth output the final blend reads in place, writing u-planes
-(ops/repack.py). A plain frame then takes the interleave kernel.
+space-to-depth output the final blend reads in place (ops/blend.py), writing
+the frame once, as plain rows or as u-planes (ops/repack.py).
 
 Spans (utils/trace.py, recorded only while a profiler runs) name the
 stages: `features` and `levels` of the flow (inference and training),
@@ -31,7 +31,7 @@ stages: `features` and `levels` of the flow (inference and training),
 `splat`, `flowback`, `gather`, `refine_in` (the UNet's input; packed, one
 launch of ops/repack.py's `pack_s2d4` kernel, which concatenates, casts and
 space-to-depths in one pass; else the concatenation and the cast),
-`unet`, `blend` and, packed into plain rows, `interleave`.
+`unet` and `blend` (packed, one launch of ops/blend.py's kernel).
 """
 
 from __future__ import annotations
@@ -48,7 +48,8 @@ from ..device import resolve_device
 from ..ops import fastwarp
 from ..ops.block_pca import block_pca_features, pca_projection
 from ..ops.fastconv import conv3x3
-from ..ops.repack import interleave_planes, pack_s2d4
+from ..ops.blend import blend6_out
+from ..ops.repack import pack_s2d4
 from ..ops.resize import resize_2d
 from ..ops.splat import softsplat, softsplat_norm, softsplat_vals
 from ..ops.warp import bwarp, ones_mask_sep, sample_coords
@@ -455,49 +456,10 @@ def can_use_packed(flow_l: torch.Tensor, images: torch.Tensor) -> bool:
             and min(flow_l.shape[1], flow_l.shape[2]) >= 96)
 
 
-def blend6(logits: torch.Tensor, cands, tb: torch.Tensor,
-           Tparam: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """The fast path's candidate blend with the (1−t)/t weights folded into
-    the softmax logits: t_i·exp(o_i/T) = exp(o_i/T + log t_i), so the
-    renormalising divisor cancels (fldrx blend_planes_24).
-    logits [..., 6]; cands (warped0, warped1, im0, im1, x0, x1) [..., 3];
-    tb [B, 1, ..., 1] of the same rank; the result is written to `out`."""
-    logt = torch.log(tb)
-    log1mt = torch.log(1.0 - tb)
-    bias = torch.cat([log1mt, logt, log1mt, logt, log1mt, logt], -1)
-    x = logits / Tparam + bias
-    e = torch.exp(x - x.amax(-1, keepdim=True))
-    pr = e / e.sum(-1, keepdim=True)
-    acc = pr[..., 0:1] * cands[0]
-    for i in range(1, 5):
-        acc = acc + pr[..., i:i + 1] * cands[i]
-    return torch.add(acc, pr[..., 5:6] * cands[5], out=out)
-
-
-def blend6_planes(logits_s2d: torch.Tensor, cands, tb: torch.Tensor,
-                  Tparam: torch.Tensor) -> torch.Tensor:
-    """`blend6` straight from the refine UNet's s2d4 output into u-planes:
-    logits_s2d [B, H/4, W/4, 16·6] in cell-major order (u·4+v)·6+c, cands
-    plain [B, H, W, 3] → [B, 4, H/4, W·3]. Plane u of every operand is a
-    strided view, so the 6-channel UNet output is never depth-to-space
-    permuted; the 3-channel result is, by the interleave kernel or the
-    host, at half the bytes."""
-    B, Hp4, Wp4, _ = logits_s2d.shape
-    lg = logits_s2d.reshape(B, Hp4, Wp4, 4, 4, 6)
-    cs = [c.reshape(B, Hp4, 4, Wp4, 4, 3) for c in cands]
-    tb = tb.reshape(B, 1, 1, 1, 1)
-    out = torch.empty((B, 4, Hp4, Wp4, 4, 3), dtype=torch.float32,
-                      device=logits_s2d.device)
-    for u in range(4):
-        blend6(lg[:, :, :, u], [c[:, :, u] for c in cs], tb, Tparam,
-               out=out[:, u])
-    return out.reshape(B, 4, Hp4, Wp4 * 12)
-
-
 def synthesize_packed_multi(p: Params, flow_l: torch.Tensor,
                             images: torch.Tensor, ts, precomputed=None,
                             compute_dtype=torch.float32,
-                            planes_out: bool = False) -> List[torch.Tensor]:
+                            planes_out: bool = False) -> torch.Tensor:
     """Level-0 synthesis of the fast packed path for a chunk of t values,
     with the values of fldrx synthesize_packed_multi:
 
@@ -507,15 +469,19 @@ def synthesize_packed_multi(p: Params, flow_l: torch.Tensor,
     * im_tot gathers with the separable mask;
     * the UNet in s2d4 form fed in canonical channel order, its input
       packed in one pass (`pack_s2d4`);
-    * the log-t folded six-way blend with no divisor, into u-planes.
+    * the log-t folded six-way blend with no divisor, read from the UNet's
+      s2d4 logits as they are (`blend6_out`, one launch a t on the card).
 
-    The t-independent splat values are built once for the whole chunk.
-    ts: sequence of [B, 1] t tensors. Returns a list of [B, H, W, 3], or
-    with planes_out the u-planes [B, 4, H/4, W·3] (the same values; fldrx
-    planes_out), which skips the interleave kernel."""
+    The t-independent splat values are built once for the whole chunk, and
+    the chunk's frames are allocated once: each t's blend writes its frame
+    there. ts: sequence of [B, 1] t tensors. Returns [T, B, H, W, 3], or
+    with planes_out the u-planes [T, B, 4, H/4, W·3] (the same values;
+    fldrx planes_out)."""
     B = flow_l.shape[0]
     flow_l = flow_l.float()
-    images = images.float()
+    # the frames' rows are read in place by pack_s2d4 and the blend (a
+    # copy only where a caller's padding left them channel-planar)
+    images = images.float().contiguous()
     flow_10 = flow_l[..., 0:2]
     flow_01 = flow_l[..., 2:4]
     H, W = images.shape[2], images.shape[3]
@@ -535,8 +501,9 @@ def synthesize_packed_multi(p: Params, flow_l: torch.Tensor,
     ys = torch.arange(H, dtype=torch.float32,
                       device=images.device).unsqueeze(-1)
     Tparam = p["T_param"].float()
-    results = []
-    for t in ts:
+    shape = (B, 4, H // 4, W * 3) if planes_out else (B, H, W, 3)
+    result = None
+    for i, t in enumerate(ts):
         with trace.span("splat"):
             tb = t.reshape(B, 1, 1, 1).float()
             ft0 = tb * flow_01f
@@ -556,24 +523,24 @@ def synthesize_packed_multi(p: Params, flow_l: torch.Tensor,
             fb1 = (upscale * resize_2d(fb1, (H, W), "bilinear")
                    * _bwarp_ones_mask(tb * flow_10f))
         with trace.span("gather"):
+            # row-major for the blend: the kernel's output is, the CPU's
+            # plain gather follows its W-major coordinates
             sx, sy = sample_coords(fb0)
-            im0 = fastwarp.gather(x0, sx, sy, mask=True)
+            im0 = fastwarp.gather(x0, sx, sy, mask=True).contiguous()
             sx, sy = sample_coords(fb1)
-            im1 = fastwarp.gather(x1, sx, sy, mask=True)
+            im1 = fastwarp.gather(x1, sx, sy, mask=True).contiguous()
         with trace.span("refine_in"):
             refine_in = pack_s2d4([x0, x1, warped0, warped1, ft0, ft1,
                                    fb0, fb1, im0, im1], compute_dtype)
         with trace.span("unet"):
-            logits = refine_unet_s2d_core(p["refine"], refine_in).float()
+            logits = refine_unet_s2d_core(p["refine"], refine_in)
         with trace.span("blend"):
-            outP = blend6_planes(logits, (warped0, warped1, im0, im1, x0, x1),
-                                 tb, Tparam)
-        if planes_out:
-            results.append(outP)
-        else:
-            with trace.span("interleave"):
-                results.append(interleave_planes(outP).reshape(B, H, W, 3))
-    return results
+            if result is None:      # after the first UNet: not in its peak
+                result = torch.empty((len(ts), *shape), dtype=torch.float32,
+                                     device=images.device)
+            blend6_out(logits, (warped0, warped1, im0, im1, x0, x1), tb,
+                       Tparam, out=result[i])
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -719,14 +686,14 @@ def forward_synthesis_multi(params: Params, cfg: FLDRConfig,
                             planes_out: bool = False) -> torch.Tensor:
     """Level-0 synthesis for a chunk of t values → [T, B, H, W, 3]. The
     packed path takes the whole chunk in one call, sharing its
-    t-independent setup; there planes_out returns the u-planes
-    [T, B, 4, H/4, W·3] (elsewhere it is ignored: callers check the
-    shape)."""
+    t-independent setup and writing each frame in place; there planes_out
+    returns the u-planes [T, B, 4, H/4, W·3] (elsewhere it is ignored:
+    callers check the shape)."""
     if _packed_enabled(cfg) and can_use_packed(flow, images):
-        return torch.stack(synthesize_packed_multi(
+        return synthesize_packed_multi(
             params["vfinet"], flow, images, ts, precomputed=precomputed,
             compute_dtype=_stage_dtype(cfg, "unet_dtype", compute_dtype),
-            planes_out=planes_out), 0)
+            planes_out=planes_out)
     return torch.stack(
         [forward_synthesis(params, cfg, flow, images, t,
                            precomputed=precomputed,

@@ -35,7 +35,7 @@ from typing import Dict, List
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("warp", "conv3x3", "correlation", "repack", "resize")
+SOURCES = ("warp", "conv3x3", "correlation", "repack", "resize", "blend")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 HOST_SOURCES = ("decoder",)

@@ -11,13 +11,16 @@ written once: bytes bound it); a CPU tensor takes the plain version. fldrx
 has no kernel here (it leaves its concatenation to XLA).
 
 The u-plane form of a [H, W, C] frame is four planes [4, H/4, W·C], where
-row y of the frame is row y//4 of plane y%4. The packed synthesis blends in
-this form because it reads the refine UNet's space-to-depth output in place
-(model/fldrnet.py `blend6_planes`). Two unpacks return plain rows:
+row y of the frame is row y//4 of plane y%4. The packed synthesis can
+return its frames in this form (planes_out): its blend (ops/blend.py)
+reads the refine UNet's space-to-depth output in place and writes either
+form. Two unpacks return plain rows:
 
-* `interleave_planes` on the device. A CUDA tensor launches the kernel in
-  csrc/repack.cu (built at first use, see ops/_build.py) or raises; a CPU
-  tensor takes the plain version. `LAUNCHES` counts kernel launches.
+* `interleave_planes` on the device, the counterpart of fldrx's interleave
+  kernel; the packed synthesis writes plain rows itself, so no model path
+  launches it. A CUDA tensor launches the kernel in csrc/repack.cu (built
+  at first use, see ops/_build.py) or raises; a CPU tensor takes the plain
+  version. `LAUNCHES` counts kernel launches.
 * `planes_to_plain_np` on the host, for frames that are fetched anyway.
 
 `extract_planes` is the inverse, plain rows → u-planes, through the

@@ -9,7 +9,7 @@ The deploy mix (bench_inputs.deploy_config) on the repository's
 checkpoint and bench.py's uint8 texture pair (2160×4096 by default), as
 the bench runs it: the flow once, then the 7 t values in chunks of 4; the
 synthesis returns plain rows (planes_out off, as evaluate() asks when it
-scores on the card), so the interleave runs.
+scores on the card).
 
 A stub swaps a function of the model's modules, inside a context manager,
 for one that returns zeros of the shapes and dtypes the real function
@@ -19,8 +19,7 @@ pyramid (build_pyramid's resizes), features (extract_features), levels
 (level_flow), z (z_metrics and the resizes to half resolution), pack (the
 resizes to full resolution). Synthesis stages: splat (fastwarp.splat),
 flowback (the unmasked gathers and the resizes), gather (the masked
-gathers), unet (refine_unet_s2d_core), blend (blend6_planes), interleave
-(interleave_planes).
+gathers), unet (refine_unet_s2d_core), blend (blend6_out).
 
 Timing: on the card by CUDA events around each run, on the CPU
 (device="cpu", for tests) by the host clock; one untimed pass per variant,
@@ -88,8 +87,7 @@ SYNTH_STUBS: Dict[str, List[Target]] = {
                  (fldrnet, "resize_2d", None)],
     "gather": [(fastwarp, "gather", _masked(True))],
     "unet": [(fldrnet, "refine_unet_s2d_core", None)],
-    "blend": [(fldrnet, "blend6_planes", None)],
-    "interleave": [(fldrnet, "interleave_planes", None)],
+    "blend": [(fldrnet, "blend6_out", None)],
 }
 # stage → the path of its span (utils/trace.py)
 SPANS = {"pyramid": "flow/pyramid", "features": "flow/features",

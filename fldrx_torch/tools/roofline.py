@@ -17,21 +17,21 @@ them; a resize counts its taps, as csrc/resize.cu runs it on the card
 [out, in] matrices, is counted apart by `cpu_resize_flops`.
 
 (a) Per kernel: `gather`, `splat`, `gather_grad`, `splat_grad`,
-`conv3x3`, `correlation`, `interleave`, `deinterleave`, `pack_s2d4` and
-`resize_taps` give (bytes, flops, the rate's index in PEAKS) for a
-kernel's shapes; `kernel_bound` turns them into chip_smoke.py phase 2's
-bound.
+`conv3x3`, `correlation`, `interleave`, `deinterleave`, `pack_s2d4`,
+`resize_taps` and `blend6` give (bytes, flops, the rate's index in PEAKS)
+for a kernel's shapes; `kernel_bound` turns them into chip_smoke.py phase
+2's bound.
 
 (b) Per stage: `stages(H, W)` for a frame of H×W padded as the deploy
 mix pads it (bench_inputs.deploy_config: papermodel_test5, S_tst = 5,
 float32 flow path, bf16 refine UNet, t chunks of 4). The flow stages
 (pyramid, features, levels, z, pack) run once per pair; the synthesis
-stages (splat, flowback, gather, refine_in, unet_cat, unet, blend,
-interleave) once per t. `--measured` takes tools/perfprobe2.py's JSON,
-taken on the card, and puts each stage's in-context times beside its
-floor: the delta (the whole minus the run with that stage stubbed out)
-and the span (the card's time in the stage's calls within the whole),
-each with the floor's share of it.
+stages (splat, flowback, gather, refine_in, unet_cat, unet, blend) once
+per t. `--measured` takes tools/perfprobe2.py's JSON, taken on the card,
+and puts each stage's in-context times beside its floor: the delta (the
+whole minus the run with that stage stubbed out) and the span (the card's
+time in the stage's calls within the whole), each with the floor's share
+of it.
 """
 
 from __future__ import annotations
@@ -139,6 +139,15 @@ def resize_taps(N: int, H: int, W: int, C: int, OH: int, OW: int,
     flops = 0 if (OH, OW) == (H, W) else 2.0 * taps * N * C * OH * (W + OW)
     return (F4 * N * C * (rows * cols + OH * OW) + 8 * taps * (OH + OW),
             flops, F32)
+
+
+def blend6(B: int, H: int, W: int, logit_bytes: int):
+    """The six-way blend of B·H·W pixels: 6 logits of `logit_bytes` and
+    the six 3-channel float32 candidates in, the float32 frame out; the
+    softmax and the weighted sum (66 flops a pixel)."""
+    n = B * H * W
+    return (logit_bytes * 6 * n + F4 * (6 * 3 * n + 3 * n), 66.0 * n,
+            F32)
 
 
 def kernel_bound(peaks, work) -> Tuple[float, str]:
@@ -348,16 +357,8 @@ def unet(H: int, W: int) -> Work:
 
 
 def blend(H: int, W: int) -> Work:
-    """One t's blend6_planes: float32 logits (6 a pixel) and the six
-    3-channel candidates in, the u-planes out; the softmax and the
-    weighted sum (66 flops a pixel)."""
-    n = H * W
-    return Work(F4 * (6 * n + 6 * 3 * n + 3 * n), other=66.0 * n)
-
-
-def synth_interleave(H: int, W: int) -> Work:
-    """One t's u-planes to rows: 3 float32 channels."""
-    return _kernel(interleave(1, H, W * 3))
+    """One t's six-way blend (`blend6`) with the UNet's bf16 logits."""
+    return _kernel(blend6(1, H, W, BF2))
 
 
 def resizes(stage: str, H: int, W: int):
@@ -390,8 +391,7 @@ FLOW_STAGES = {"pyramid": pyramid, "features": features, "levels": levels,
                "z": z, "pack": pack}
 SYNTH_STAGES = {"splat": synth_splat, "flowback": flowback,
                 "gather": synth_gather, "refine_in": refine_in,
-                "unet_cat": unet_cat, "unet": unet, "blend": blend,
-                "interleave": synth_interleave}
+                "unet_cat": unet_cat, "unet": unet, "blend": blend}
 T_PER_PAIR = 7                  # ×8: the multiple − 1 interpolated frames
 
 

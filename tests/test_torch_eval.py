@@ -285,8 +285,8 @@ def test_evaluate_options(eval_models, tmp_path):
 @pytest.fixture(scope="module")
 def golden_set_768():
     """The pan golden pair at 768×768 as an 8-bit test set: large enough
-    for the packed synthesis (flow grid ≥ 96), so its u-planes and the
-    interleave are on the path."""
+    for the packed synthesis (flow grid ≥ 96), so its blend into u-planes
+    and into plain rows is on the path."""
     return tgold.GoldenTestSet(*tgold.golden_pair(768, 768, 8))
 
 
@@ -303,8 +303,8 @@ def test_golden_test_set(golden_set_768):
 
 def test_evaluate_golden_set_matches_fldrx(golden_set_768, monkeypatch):
     """evaluate(dataset=) on the 8-bit golden set, papermodel_test5 S_tst=1
-    on the packed path: with the metrics on the device (plain rows through
-    the interleave) and on the host (u-planes unpacked on the workers) the
+    on the packed path: with the metrics on the device (plain rows written
+    by the blend) and on the host (u-planes unpacked on the workers) the
     two agree to 1e-4 dB and 1e-5 SSIM, and fldrx's evaluate on the same
     items agrees to 0.01 dB and 1e-4 SSIM."""
     tc = tcfg.papermodel_test5().replace(S_tst=1)

@@ -17,7 +17,10 @@ adds the groups in a fixed order, where torch.mean does not, held at
 1e-5·(1 + |ref|); the resize sums its taps in the order and with the
 roundings of its plain version (bit for bit) and is held within 2e-6·max|x|
 of the dense form; the interleave, the deinterleave and pack_s2d4 move
-values (pack_s2d4 rounds each once, as `.to` does), held bit for bit; conv3x3 rounds its
+values (pack_s2d4 rounds each once, as `.to` does), held bit for bit; the
+blend computes in the order and with the roundings of its plain version,
+but with CUDA's expf and logf where its plain version runs torch's exp and
+log, held within 1e-6 max abs; conv3x3 rounds its
 output to bf16 (one ulp is 1/128 relative), held at 2e-2 max abs and 1e-2
 relative L2 against float32 F.conv2d.
 
@@ -33,8 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from fldrx_torch.ops import (_build, correlation, fastconv, fastwarp, repack,
-                             resize)
+from fldrx_torch.ops import (_build, blend, correlation, fastconv, fastwarp,
+                             repack, resize)
 from fldrx_torch.ops import warp as twarp
 
 torch.set_num_threads(1)
@@ -75,6 +78,11 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         "fldrx_resize_taps_f32": [_P] * 2 + [_I] * 4 + [_P] * 2 + [_I]
         + [_P] * 2 + [_I] * 4 + [_P, _I, _P, _P],
     }),
+    ("blend", {
+        # logits, logits_bf16, cands, strides, t, T, out, planes, B, H, W,
+        # stream
+        "fldrx_blend6": [_P, _I] + [_P] * 5 + [_I] * 4 + [_P],
+    }),
     ("decoder", {
         # path, w, h
         "fldrx_png_probe": [_P] * 3,
@@ -86,8 +94,8 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 ])
 def test_entry_point_prototypes(name, expected):
     """The ctypes binding read from each source's extern "C" prototypes
-    has the arguments the wrappers in fastwarp/fastconv/repack/correlation
-    and data/native pass."""
+    has the arguments the wrappers in fastwarp/fastconv/repack/correlation/
+    resize/blend and data/native pass."""
     assert _build.prototypes(name) == expected
 
 
@@ -634,6 +642,68 @@ def test_pack_s2d4_launches_once_a_t(card):
     torch.cuda.synchronize()
     assert len(out) == 4
     assert repack.LAUNCHES["pack_s2d4"] == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [0.125, 0.5, 0.875])
+@pytest.mark.parametrize("H,W", [(64, 128), (2304, 512)])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("planes", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_blend6_kernel_matches_plain(card, dtype, planes, B, H, W, t):
+    """The blend kernel against `blend6_plain` run on the card, one launch
+    a call, into plain rows and into u-planes, with x0 and x1 batch-strided
+    views of one [B, 2, H, W, 3] tensor: within 1e-6 max abs (the kernel's
+    expf and logf against torch's exp and log, and its sum of the six
+    exponentials in order against torch.sum's)."""
+    g = torch.Generator().manual_seed(H + W + B)
+    logits = (torch.randn(B, H // 4, W // 4, 96, generator=g) * 4).to(
+        dtype).to(card)
+    images = (torch.rand(B, 2, H, W, 3, generator=g) * 2 - 1).to(card)
+    cands = [(torch.rand(B, H, W, 3, generator=g) * 2 - 1).to(card)
+             for _ in range(4)] + [images[:, 0], images[:, 1]]
+    tb = torch.full((B, 1, 1, 1), t, device=card)
+    T = torch.tensor([0.8], device=card)
+    shape = (B, 4, H // 4, W * 3) if planes else (B, H, W, 3)
+    got = torch.full(shape, float("nan"), device=card)
+    want = torch.full(shape, float("nan"), device=card)
+    before = blend.LAUNCHES["blend6"]
+    with torch.inference_mode():
+        blend.blend6_out(logits, cands, tb, T, got)
+    blend.blend6_plain(logits, cands, tb, T, want)
+    torch.cuda.synchronize()
+    assert blend.LAUNCHES["blend6"] == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes_out", [False, True])
+def test_blend6_launches_once_a_t(card, planes_out):
+    """One packed synthesis over a chunk of 4 t values launches the blend
+    exactly 4 times and the interleave never, in either layout."""
+    from fldrx_torch.config import papermodel
+    from fldrx_torch.model import fldrnet
+
+    cfg = papermodel().replace(fast_warp=True, packed_synth=True)
+    params = fldrnet.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device=card)
+    g = torch.Generator().manual_seed(1)
+    B, H, W = 1, 384, 384
+    images = (torch.rand(B, 2, H, W, 3, generator=g) * 2 - 1).to(card)
+    flow_l = (torch.rand(B, H // 4, W // 4, 4, generator=g) * 6 - 3).to(card)
+    ts = [torch.full((B, 1), t, device=card) for t in (0.2, 0.4, 0.6, 0.8)]
+    before = blend.LAUNCHES["blend6"], repack.LAUNCHES["interleave"]
+    with torch.inference_mode():
+        out = fldrnet.synthesize_packed_multi(
+            params["vfinet"], flow_l, images, ts,
+            compute_dtype=torch.bfloat16, planes_out=planes_out)
+    torch.cuda.synchronize()
+    assert out.shape == ((4, B, 4, H // 4, W * 3) if planes_out
+                         else (4, B, H, W, 3))
+    assert torch.isfinite(out).all()
+    assert (blend.LAUNCHES["blend6"], repack.LAUNCHES["interleave"]) == (
+        before[0] + 4, before[1])
 
 
 # the main path's resizes at 4K (the padded 2304×4096 frame): the pyramid's

@@ -49,6 +49,7 @@ TABLE = [
     (R.interleave, (1, 2304, 12288), "0.068", "bytes"),
     (R.deinterleave, (1, 2304, 12288), "0.068", "bytes"),
     (R.pack_s2d4, (1, 2304, 4096, 26, 2), "0.439", "bytes"),
+    (R.blend6, (1, 2304, 4096, 2), "0.270", "bytes"),
     (R.resize_taps, (2, 2304, 4096, 3, 1152, 2048, 4), "0.0845", "bytes"),
     (R.resize_taps, (1, 288, 512, 2, 2304, 4096, 2), "0.0229", "bytes"),
     (R.resize_taps, (1, 1152, 2048, 1, 2304, 4096, 2), "0.0141", "bytes"),
@@ -169,7 +170,7 @@ FAKE_PROBE = {
     "synthesis": {"whole_ms": 150.0, "variants": {
         k: {"ms": 136.0, "delta_ms": 14.0, "delta_spread_ms": 0.1,
             "span_ms": 21.0} for k in ("splat", "flowback", "gather", "unet",
-                                       "blend", "interleave")}},
+                                       "blend")}},
 }
 
 

@@ -18,8 +18,8 @@ import torch
 from fldrx_torch.api import prepare_model
 from fldrx_torch.bench_inputs import train_batch
 from fldrx_torch.config import papermodel, papermodel_test5
-from fldrx_torch.ops import (_build, correlation, fastconv, fastwarp, repack,
-                             resize)
+from fldrx_torch.ops import (_build, blend, correlation, fastconv, fastwarp,
+                             repack, resize)
 from fldrx_torch.tools import profile_pair
 from fldrx_torch.train.trainer import TrainState, make_train_step
 from fldrx_torch.utils import trace
@@ -135,12 +135,12 @@ def test_pair_spans_nest_with_one_request_a_pair(interp):
 
 def test_packed_synthesis_names_its_stages(traced, monkeypatch):
     """At 768×768 the packed synthesis runs: its stages carry the same
-    names, with the interleave into plain rows."""
+    names, and its blend writes the plain rows (no interleave)."""
     _restore(monkeypatch, traced)
     snap = trace.snapshot()
     pair = {p for p in snap if not p.startswith("train_step")}
-    assert pair == FLOW | SYNTH | {"synth/interleave"}
-    assert snap["synth/interleave"]["calls"] == 3
+    assert pair == FLOW | SYNTH
+    assert snap["synth/blend"]["calls"] == 3
     assert snap["synth"]["n_t"] == 3 and snap["flow"]["requests"] == 1
 
 
@@ -184,7 +184,7 @@ def test_counters_are_the_launch_deltas():
     assert trace.RECORDER.groups == {
         "fastwarp": fastwarp.LAUNCHES, "fastconv": fastconv.LAUNCHES,
         "correlation": correlation.LAUNCHES, "repack": repack.LAUNCHES,
-        "resize": resize.LAUNCHES}
+        "resize": resize.LAUNCHES, "blend": blend.LAUNCHES}
 
 
 def test_the_store_is_bounded(monkeypatch):
@@ -229,6 +229,10 @@ def test_span_names_are_the_work_counts_stages(traced, monkeypatch):
 
 READERS = sorted(os.path.basename(p)[:-3] for p in glob.glob(
     os.path.join(ROOT, "vfibench", "metrics", "trace.*.py")))
+# readers of spans that the program no longer opens: the packed blend
+# writes plain rows itself, so the synthesis has no `interleave` span; such
+# a reader reads nothing, and raises nothing, from a traced run
+SILENT = {"trace.stage.interleave_ms_per_t"}
 
 
 def test_the_readers_are_the_benchmarks():
@@ -250,6 +254,9 @@ def test_reader_reads_a_traced_run_and_none_from_an_empty_store(
     monkeypatch.setitem(_build.BUILDS, "cached", 4)
     _restore(monkeypatch, traced)
     v = reader.read(rec)
+    if name in SILENT:
+        assert v is None
+        return
     assert isinstance(v, float) and np.isfinite(v) and v >= 0, v
     if reader.UNIT == "ms":
         assert v > 0
